@@ -1,0 +1,286 @@
+"""Smoke run of tuplex_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a nonzero exit:
+
+  1. the card's name and power limit;
+  2. build the NFA scan kernel (csrc/nfa_scan.cu) with nvcc;
+  3. the kernel against its plain torch version on the card: the pattern
+     x string matrix of the reference package's NFA tests, seeded random
+     byte matrices of 1,000,003 rows x 128 bytes, and the log-grep batch at
+     the shape the main path stages; results must match exactly;
+  4. the dual-mode smoke pipeline through Context() on the card;
+  5. the log grep over 1,891,715 generated Apache log lines (seed 17, one
+     non-ASCII line in every 100,000), checked against a plain Python loop.
+
+It prints one JSON line of kernel numbers, then the card's name and power
+limit, and as its last line {"ok": true, "device": {...}}. It needs CUDA
+and the rest of the repository; without either it exits nonzero and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: CUDA is not available")
+
+from tuplex_tpu_torch import Context                      # noqa: E402
+from tuplex_tpu_torch.models import logs                  # noqa: E402
+from tuplex_tpu_torch.ops import nfa_cuda                 # noqa: E402
+from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
+from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
+
+LOG_LINES = 1_891_715       # NASA-HTTP, July 1995: one month of requests
+NON_ASCII_EVERY = 100_000
+RANDOM_ROWS = 1_000_003     # not a multiple of any block size
+RANDOM_WIDTH = 128
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+SLEEP_CYCLES = 400_000_000  # busy-wait that hides launch overhead (~0.2 s)
+
+# the pattern x string matrix of tests/test_string_ops.py:270-273
+MATRIX_STRINGS = ["", "a", "abc", "zabcz", "GET /idx HTTP/1.0", "aaab",
+                  "ab\n", "aXb", "2023-04-01", "foo123bar", "a" * 50 + "b"]
+MATRIX_PATTERNS = ["abc", "a+b", "GET|POST", "a*b", "[0-9]+-[0-9]+",
+                   "^abc", "abc$", "^a.*b$", r"\d+", "(ab)+", "^$", "b$"]
+# the patterns phase 3 runs over the random matrices; the last two use all
+# 64 positions of the state word (bit 63 included)
+RANDOM_PATTERNS = ["GET|POST", logs.ERROR_STATUS, "^a.*b$", "b$", "^$",
+                   "a*b", "GET /" + "[a-z]" * 57 + "(x|y)", "[ab]" * 64]
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def kernel_device_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host ms) per call of fn(), which launches one kernel.
+    The calls are queued behind a busy-wait on the card, so the events time
+    the launches back to back and not the host's per-call overhead; fails
+    if the host did not finish queueing before the busy-wait ended."""
+    fn()
+    torch.cuda.synchronize()
+    e_sleep = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    e_sleep.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= e_sleep.elapsed_time(start):
+        raise AssertionError("kernel timing: the host did not get ahead of "
+                             "the card; raise SLEEP_CYCLES")
+    return start.elapsed_time(end) / reps, host_ms / reps
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over `reps` runs, by CUDA events, after one
+    warm-up run (host launch overhead included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_matrix(rng: np.random.Generator, n: int, w: int):
+    """Seeded byte rows over a small alphabet (so the patterns match
+    often), 1% of rows over all 256 byte values, 1% long a/b runs, lengths
+    0..w, and 5% of the non-empty rows ending in a newline."""
+    alphabet = np.frombuffer(b'abxyzGETPOS /"0123456789\n', dtype=np.uint8)
+    mat = alphabet[rng.integers(0, len(alphabet), size=(n, w))]
+    wide = rng.random(n) < 0.01
+    mat[wide] = rng.integers(0, 256, size=(int(wide.sum()), w),
+                             dtype=np.uint8)
+    runs = rng.random(n) < 0.01
+    mat[runs] = np.frombuffer(b"ab", dtype=np.uint8)[
+        rng.integers(0, 2, size=(int(runs.sum()), w))]
+    lens = rng.integers(0, w + 1, size=n).astype(np.int32)
+    lens[runs] = rng.integers(64, w + 1, size=int(runs.sum()))
+    nl = (rng.random(n) < 0.05) & (lens > 0)
+    mat[np.nonzero(nl)[0], lens[nl] - 1] = 10
+    mat[np.arange(w)[None, :] >= lens[:, None]] = 0
+    return mat, lens
+
+
+def check_kernel(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
+    """Kernel against the plain version on the same tensors; returns the
+    largest absolute difference (0 = identical)."""
+    got = rx.match(b, l)
+    want = rx.match_bitmask(b, l)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    if err:
+        raise AssertionError(f"kernel != plain version on {what}")
+    return err
+
+
+def main() -> None:
+    dev = torch.device("cuda", 0)
+
+    # 1 --------------------------------------------------------------
+    card = card_line()
+    print(f"card: {card} | torch.cuda: {torch.cuda.get_device_name(0)}")
+
+    # 2 --------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = nfa_cuda.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib}")
+    if nfa_cuda.build_log:
+        print(nfa_cuda.build_log.strip())
+
+    # 3 --------------------------------------------------------------
+    max_err = 0
+    enc = C.encode_str_leaf(MATRIX_STRINGS, False)
+    mb = torch.from_numpy(np.ascontiguousarray(enc.bytes)).to(dev)
+    ml = torch.from_numpy(enc.lengths).to(dev)
+    for pat in MATRIX_PATTERNS:
+        rx = compile_nfa(pat)
+        got = rx.match(mb, ml).cpu().tolist()
+        want = [re.search(pat, s) is not None for s in MATRIX_STRINGS]
+        if got != want:
+            raise AssertionError(f"pattern {pat!r}: {got} != re {want}")
+        if rx.n_pos:
+            max_err = max(max_err, check_kernel(rx, mb, ml, repr(pat)))
+    rng = np.random.default_rng(17)
+    mat, lens = random_matrix(rng, RANDOM_ROWS, RANDOM_WIDTH)
+    rb = torch.from_numpy(mat).to(dev)
+    rl = torch.from_numpy(lens).to(dev)
+    for pat in RANDOM_PATTERNS:
+        rx = compile_nfa(pat)
+        if rx.n_pos:
+            max_err = max(max_err, check_kernel(rx, rb, rl, repr(pat)))
+    print(f"kernel == plain on {len(MATRIX_PATTERNS)} x "
+          f"{len(MATRIX_STRINGS)} matrix and {len(RANDOM_PATTERNS)} "
+          f"patterns over {RANDOM_ROWS} x {RANDOM_WIDTH} random rows")
+    need = int(rl.to(torch.int64).sum())
+    for pat in (logs.ERROR_STATUS, "[ab]" * 64):
+        rx = compile_nfa(pat)
+        ms, _ = kernel_device_ms(lambda: rx.match(rb, rl), 20)
+        bound = (need + 5 * RANDOM_ROWS) / HBM_BYTES_PER_S * 1e3
+        print(f"nfa_scan at [{RANDOM_ROWS}, {RANDOM_WIDTH}] random rows, "
+              f"{rx.n_pos} positions ({pat[:24]!r}): kernel {ms:.4f} ms, "
+              f"bound {bound:.4f} ms")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    path = os.path.join(tmp, "access.log")
+    t0 = time.perf_counter()
+    logs.generate_log(path, LOG_LINES, seed=17,
+                      non_ascii_every=NON_ASCII_EVERY)
+    print(f"generated {LOG_LINES} lines in {time.perf_counter() - t0:.2f} s")
+
+    # the batch the log grep stages: first partition, harmonized width
+    ctx = Context()
+    src = ctx.text(path)._op
+    t0 = time.perf_counter()
+    parts = C.harmonize_partitions(src.load_partitions())
+    load_s = time.perf_counter() - t0
+    part = parts[0]
+    del parts
+    batch = C.stage_partition(part, dev)
+    gb, gl = batch.arrays["0#bytes"], batch.arrays["0#len"]
+    grx = compile_nfa(logs.ERROR_STATUS)
+    max_err = max(max_err, check_kernel(grx, gb, gl, "log-grep batch"))
+    kernel_ms, call_ms = kernel_device_ms(lambda: grx.match(gb, gl), 50)
+    plain_ms = cuda_ms(lambda: grx.match_bitmask(gb, gl), 3)
+    n_rows, width = gb.shape
+    need = int(torch.clamp(gl, max=width).to(torch.int64).sum())
+    # the scan stops at each row's length: count the in-length bytes it
+    # must read, plus lens in and matches out; the full matrix beside it
+    bound_ms = (need + 4 * n_rows + n_rows) / HBM_BYTES_PER_S * 1e3
+    full_ms = (n_rows * width + 5 * n_rows) / HBM_BYTES_PER_S * 1e3
+    print(f"nfa_scan at [{n_rows}, {width}]: kernel {kernel_ms:.4f} ms "
+          f"on the card ({call_ms:.4f} ms of host time per wrapper call), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({need} row bytes + lens + out at {HBM_BYTES_PER_S:.3g} B/s; "
+          f"all N*W bytes: {full_ms:.4f} ms)")
+    print(f"text source: read, split and encode {LOG_LINES} lines into "
+          f"partitions: {load_s:.3f} s")
+    del batch, gb, gl, rb, rl
+
+    # 4 --------------------------------------------------------------
+    nfa_cuda.launches = 0
+    ctx = Context()
+    ds = ctx.parallelize([1, 2, None, 4]).map(lambda x: (x, x * x))
+    got = ds.collect()
+    if got != [(1, 1), (2, 4), (4, 16)]:
+        raise AssertionError(f"smoke pipeline: {got}")
+    if ctx.metrics.interpreterRows() != 1 or \
+            ds.exception_counts() != {"TypeError": 1}:
+        raise AssertionError(f"smoke pipeline: interpreter rows "
+                             f"{ctx.metrics.interpreterRows()}, exceptions "
+                             f"{ds.exception_counts()}")
+    print(f"smoke: {got}, interpreter rows 1, exceptions "
+          f"{ds.exception_counts()}, NFA launches {nfa_cuda.launches}")
+
+    # 5 --------------------------------------------------------------
+    t0 = time.perf_counter()
+    want = logs.run_grep_reference(path)
+    ref_s = time.perf_counter() - t0
+    ctx = Context()
+    nfa_cuda.launches = 0
+    t0 = time.perf_counter()
+    got = logs.build_grep(ctx.text(path)).collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nfa_cuda.launches
+    if got != want:
+        raise AssertionError(f"log grep: {len(got)} rows != python "
+                             f"{len(want)} rows")
+    if launches <= 0:
+        raise AssertionError("log grep did not launch the NFA scan kernel")
+    m = ctx.metrics
+    n_non_ascii = LOG_LINES // NON_ASCII_EVERY
+    if m.interpreterRows() != n_non_ascii:
+        raise AssertionError(f"log grep: {m.interpreterRows()} interpreter "
+                             f"rows, want {n_non_ascii}")
+    print(f"log grep: {LOG_LINES} lines -> {len(got)} rows in {wall:.3f} s "
+          f"({LOG_LINES / wall:.0f} lines/s; python loop {ref_s:.3f} s), "
+          f"interpreter rows {m.interpreterRows()}, NFA launches {launches}, "
+          f"fast path {m.fastPathWallTime():.3f} s, slow path "
+          f"{m.slowPathWallTime():.3f} s, backend {m.totalWallTime():.3f} s "
+          f"(fast + slow + merge), outside the backend "
+          f"{wall - m.totalWallTime():.3f} s (source read and encode, "
+          f"results to Python)")
+    os.remove(path)
+    os.rmdir(tmp)
+
+    print(json.dumps({"kernels": [{
+        "name": "nfa_scan", "route": "cuda",
+        "source": "tuplex_tpu_torch/csrc/nfa_scan.cu",
+        "replaces": "tuplex_tpu/ops/pallas_nfa.py:29",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": None}]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,73 @@
+"""Public DataSet — lazy operator-graph builder (counterpart of
+`tuplex_tpu/api/dataset.py`; reference: python/tuplex/dataset.py — map:49,
+filter:83, collect:113, exception_counts:707). Every method returns a NEW
+DataSet over a new logical operator; nothing executes until collect()."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from ..core import typesys as T
+from ..plan import logical as L
+from ..plan.physical import plan_stages
+from ..runtime import columns as C
+
+
+class DataSet:
+    def __init__(self, context, op: L.LogicalOperator):
+        self._context = context
+        self._op = op
+        self._last_exceptions: list = []
+
+    def map(self, ftor: Callable) -> "DataSet":
+        return DataSet(self._context, L.MapOperator(self._op, ftor))
+
+    def filter(self, ftor: Callable) -> "DataSet":
+        return DataSet(self._context, L.FilterOperator(self._op, ftor))
+
+    def collect(self) -> list:
+        out = []
+        exceptions = []
+        for stage in plan_stages(self._op):
+            res = self._context.backend.execute(
+                stage, _source_partitions(self._context, stage.source))
+            self._context.metrics.record_stage(res.metrics)
+            exceptions.extend(res.exceptions)
+            for p in res.partitions:
+                out.extend(C.partition_to_pylist(p))
+        self._last_exceptions = exceptions
+        return out
+
+    def exception_counts(self) -> dict[str, int]:
+        """Counts of unresolved exceptions from the LAST collect() on this
+        dataset (reference: dataset.py:707)."""
+        counts: dict[str, int] = {}
+        for rec in self._last_exceptions:
+            counts[rec.exc_name] = counts.get(rec.exc_name, 0) + 1
+        return counts
+
+
+def _source_partitions(context, src) -> list:
+    """Materialize a stage source into columnar partitions with one
+    dataset-wide string width."""
+    if isinstance(src, L.ParallelizeOperator):
+        schema = src.schema()
+        part_rows = _rows_per_partition(context, schema, len(src.data))
+        parts = [C.build_partition(src.data[off: off + part_rows], schema,
+                                   start_index=off)
+                 for off in range(0, len(src.data), part_rows)]
+    else:
+        parts = src.load_partitions()
+    return C.harmonize_partitions(parts)
+
+
+def _rows_per_partition(context, schema, total_rows: int) -> int:
+    psize = context.options_store.get_size("tuplex.partitionSize", 32 << 20)
+    # rough per-row cost: 8B per numeric leaf + 64B per str leaf
+    per_row = 0
+    for ci, ct in enumerate(schema.types):
+        for _, lt in C.flatten_type(ct, str(ci)):
+            base = lt.without_option() if lt.is_optional() else lt
+            per_row += 64 if base is T.STR else 8
+    per_row = max(per_row, 8)
+    return max(64, min(total_rows, psize // per_row))

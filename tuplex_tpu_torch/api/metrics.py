@@ -1,0 +1,39 @@
+"""Job metrics (counterpart of `tuplex_tpu/api/metrics.py`; reference:
+core/include/JobMetrics.h — fast/slow path wall time, exception counts)."""
+
+from __future__ import annotations
+
+
+class Metrics:
+    def __init__(self):
+        self.stages: list[dict] = []
+
+    def record_stage(self, m: dict) -> None:
+        self.stages.append(dict(m))
+
+    def _sum(self, key: str):
+        return sum(m.get(key, 0) for m in self.stages)
+
+    @property
+    def totalExceptionCount(self) -> int:
+        return int(self._sum("exception_rows"))
+
+    def fastPathWallTime(self) -> float:
+        """Seconds spent staging, running and fetching the compiled path."""
+        return float(self._sum("fast_path_s"))
+
+    def slowPathWallTime(self) -> float:
+        """Seconds spent on the interpreter path."""
+        return float(self._sum("slow_path_s"))
+
+    def totalWallTime(self) -> float:
+        return float(self._sum("wall_s"))
+
+    def interpreterRows(self) -> int:
+        """Rows the interpreter ran: input rows outside the normal case plus
+        rows whose device error code was set."""
+        return int(self._sum("interpreter_rows"))
+
+    def deviceErrorRows(self) -> int:
+        """Rows the compiled path flagged with an error code."""
+        return int(self._sum("device_error_rows"))

@@ -1,0 +1,590 @@
+"""Columnar host memory layout + host<->device staging (counterpart of
+`tuplex_tpu/runtime/columns.py`).
+
+Same layout as the reference package:
+
+  * every logical column is decomposed into fixed-shape leaf arrays
+      - numeric leaves: one array [N]
+      - str leaves:     uint8 bytes [N, W] zero-padded + int32 lengths [N]
+      - Option adds a validity bool [N]
+      - nested tuples flatten to dotted paths ("col.0.1")
+  * a partition covers a contiguous range of original row positions; rows
+    that do NOT conform to the normal-case schema keep their slot
+    (placeholder zeros) and live boxed in `fallback`, which preserves order
+    for the dual-mode merge.
+  * device staging pads N up to a bucket (and W per str column) so kernels
+    see few distinct shapes.
+
+Host leaves are numpy; `stage_partition` copies them into torch tensors on
+the run's device. Byte matrices are built with numpy (no native module).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import typesys as T
+from ..core.row import Row
+
+LEAF_NUMERIC = {T.BOOL: np.bool_, T.I64: np.int64, T.F64: np.float64}
+
+
+def flatten_type(t: T.Type, path: str = "") -> list[tuple[str, T.Type]]:
+    """Leaf (path, type) pairs for a column type. Option wraps leaves; an
+    Option[Tuple] column gets an extra "<path>#opt" BOOL leaf for whole-tuple
+    validity. Types without a fixed columnar layout become one pyobject
+    leaf (host-boxed, interpreter-only)."""
+    base = t.without_option() if t.is_optional() else t
+    opt = t.is_optional()
+
+    if isinstance(base, T.TupleType):
+        out: list[tuple[str, T.Type]] = []
+        if opt:
+            out.append((f"{path}#opt", T.BOOL))
+        for i, e in enumerate(base.elements):
+            sub = f"{path}.{i}" if path else str(i)
+            out.extend(flatten_type(T.option(e) if opt else e, sub))
+        return out
+    if base in (T.BOOL, T.I64, T.F64, T.STR, T.NULL, T.EMPTYTUPLE):
+        return [(path, t)]
+    return [(path, T.PYOBJECT)]
+
+
+def user_columns(schema: T.RowType):
+    """Auto-generated names are '_0', '_1', ... — a schema made only of them
+    is an UNNAMED row (UDFs get bare values/tuples)."""
+    cols = schema.columns
+    if cols and all(c == f"_{i}" for i, c in enumerate(cols)):
+        return None
+    return cols if cols else None
+
+
+# ---------------------------------------------------------------------------
+# leaf column containers (host, numpy)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class NumericLeaf:
+    data: np.ndarray                      # [N] bool_/int64/float64
+    valid: Optional[np.ndarray] = None    # [N] bool_ when Option
+
+    def __len__(self):
+        return len(self.data)
+
+
+@dataclass
+class StrLeaf:
+    bytes: np.ndarray                     # [N, W] uint8, zero padded
+    lengths: np.ndarray                   # [N] int32
+    valid: Optional[np.ndarray] = None
+
+    def __len__(self):
+        return len(self.lengths)
+
+    @property
+    def width(self) -> int:
+        return self.bytes.shape[1] if self.bytes.ndim == 2 else 0
+
+
+@dataclass
+class NullLeaf:
+    """All-None column: carries only the row count."""
+    n: int
+
+    def __len__(self):
+        return self.n
+
+
+@dataclass
+class ObjectLeaf:
+    """Host-boxed python objects (List/Dict/PYOBJECT leaves)."""
+    values: list
+
+    def __len__(self):
+        return len(self.values)
+
+
+Leaf = NumericLeaf | StrLeaf | NullLeaf | ObjectLeaf
+
+
+def encode_str_leaf(values: Sequence[Optional[str]], optional: bool) -> StrLeaf:
+    """Python strings -> zero-padded [N, W] byte matrix in one numpy buffer
+    (each row padded with bytes.ljust, then viewed as a matrix)."""
+    n = len(values)
+    encoded = [v.encode("utf-8") if v is not None else b"" for v in values]
+    lens = np.fromiter(map(len, encoded), dtype=np.int32, count=n)
+    w = max(int(lens.max()) if n else 0, 1)
+    buf = bytearray(b"".join([e.ljust(w, b"\0") for e in encoded]))
+    mat = np.frombuffer(buf, dtype=np.uint8).reshape(n, w)
+    valid = None
+    if optional:
+        valid = np.array([v is not None for v in values], dtype=np.bool_)
+    return StrLeaf(mat, lens, valid)
+
+
+def encode_leaf(values: Sequence[Any], t: T.Type) -> Leaf:
+    base = t.without_option() if t.is_optional() else t
+    opt = t.is_optional()
+    n = len(values)
+    if base is T.EMPTYTUPLE and opt:
+        valid = np.array([v is not None for v in values], dtype=np.bool_)
+        return NumericLeaf(np.zeros(n, dtype=np.bool_), valid)
+    if base is T.NULL or base is T.EMPTYTUPLE:
+        return NullLeaf(n)
+    if base is T.STR:
+        return encode_str_leaf(values, opt)
+    if base in LEAF_NUMERIC:
+        dtype = LEAF_NUMERIC[base]
+        if opt:
+            data = np.zeros(n, dtype=dtype)
+            valid = np.zeros(n, dtype=np.bool_)
+            for i, v in enumerate(values):
+                if v is not None:
+                    data[i] = v
+                    valid[i] = True
+            return NumericLeaf(data, valid)
+        return NumericLeaf(np.asarray(values, dtype=dtype))
+    return ObjectLeaf(list(values))
+
+
+# ---------------------------------------------------------------------------
+# partition
+# ---------------------------------------------------------------------------
+
+def _leaf_paths_for_value(path: str, t: T.Type, v: Any) -> Iterable[tuple[str, Any]]:
+    base = t.without_option() if t.is_optional() else t
+    opt = t.is_optional()
+    if isinstance(base, T.TupleType):
+        if opt:
+            yield (f"{path}#opt", v is not None)
+        for i, e in enumerate(base.elements):
+            sub = f"{path}.{i}" if path else str(i)
+            et = T.option(e) if opt else e
+            yield from _leaf_paths_for_value(sub, et, None if v is None else v[i])
+    else:
+        yield (path, v)
+
+
+@dataclass
+class Partition:
+    """A horizontal slice of a dataset in normal-case columnar layout.
+
+    `schema` is the normal-case RowType. `leaves` maps "<col>" or
+    "<col>.<i>..." paths to leaf arrays of length == num_rows.
+    Non-conforming row positions are False in `normal_mask` and boxed in
+    `fallback` (original python value, pre-conversion).
+    """
+
+    schema: T.RowType
+    num_rows: int
+    leaves: dict[str, Leaf] = field(default_factory=dict)
+    normal_mask: Optional[np.ndarray] = None      # [N] bool; None => all normal
+    fallback: dict[int, Any] = field(default_factory=dict)
+    start_index: int = 0                          # global row offset of row 0
+
+    @property
+    def user_columns(self):
+        """Column names as the user sees them: None when auto-generated."""
+        return user_columns(self.schema)
+
+    def n_normal(self) -> int:
+        if self.normal_mask is None:
+            return self.num_rows
+        return int(self.normal_mask.sum())
+
+
+def build_partition(values: Sequence[Any], schema: T.RowType,
+                    start_index: int = 0) -> Partition:
+    """Encode boxed python row values into a Partition against `schema`.
+    Rows that don't conform keep their position as placeholder slots and
+    are boxed into `fallback`."""
+    n = len(values)
+    multi = len(schema.columns) > 1
+    if schema.types == (T.STR,) and all(type(v) is str for v in values):
+        # text lines: one bulk encode, no per-row conformance walk
+        return Partition(schema=schema, num_rows=n,
+                         leaves={"0": encode_str_leaf(values, False)},
+                         start_index=start_index)
+
+    normal_mask = np.ones(n, dtype=np.bool_)
+    fallback: dict[int, Any] = {}
+    leaf_types: list[tuple[str, T.Type]] = []
+    for ci, ct in enumerate(schema.types):
+        leaf_types.extend(flatten_type(ct, str(ci)))
+    leaf_values: dict[str, list] = {p: [] for p, _ in leaf_types}
+    leaf_type_map = dict(leaf_types)
+    placeholders = {p: _placeholder(lt) for p, lt in leaf_types}
+
+    def conforms(row_tuple) -> bool:
+        if not (isinstance(row_tuple, tuple) and
+                len(row_tuple) == len(schema.columns)):
+            return False
+        return all(T.python_value_conforms(rv, ct)
+                   for rv, ct in zip(row_tuple, schema.types))
+
+    for i, v in enumerate(values):
+        row_tuple = v if multi else (v,)
+        ok = conforms(row_tuple)
+        if not ok and not multi and isinstance(v, tuple) and len(v) == 1:
+            row_tuple = v     # single-column rows may arrive as 1-tuples
+            ok = conforms(row_tuple)
+        if not ok:
+            normal_mask[i] = False
+            fallback[i] = v
+            for p in leaf_values:
+                leaf_values[p].append(placeholders[p])
+            continue
+        for ci, (ct, rv) in enumerate(zip(schema.types, row_tuple)):
+            for p, lv in _leaf_paths_for_value(str(ci), ct, rv):
+                leaf_values[p].append(lv)
+
+    leaves = {p: encode_leaf(vals, leaf_type_map[p])
+              for p, vals in leaf_values.items()}
+    mask = None if len(fallback) == 0 else normal_mask
+    return Partition(schema=schema, num_rows=n, leaves=leaves,
+                     normal_mask=mask, fallback=fallback,
+                     start_index=start_index)
+
+
+def _placeholder(t: T.Type) -> Any:
+    base = t.without_option() if t.is_optional() else t
+    if t.is_optional() or base is T.NULL or base is T.EMPTYTUPLE:
+        return None
+    if base is T.STR:
+        return ""
+    if base is T.BOOL:
+        return False
+    if base is T.I64:
+        return 0
+    if base is T.F64:
+        return 0.0
+    return None
+
+
+# ---------------------------------------------------------------------------
+# device staging
+# ---------------------------------------------------------------------------
+
+def bucket_size(n: int, minimum: int = 8) -> int:
+    """Padded size for a real size `n`, quantized to 1/8 of its power-of-two
+    floor (waste <= 12.5%), so kernels see few distinct shapes."""
+    if n <= 0:
+        return 1
+    n = max(n, minimum)
+    p2 = 1 << (n - 1).bit_length()          # pow2 ceil
+    if n == p2:
+        return p2
+    q = max(minimum, (p2 >> 1) >> 3)        # pow2floor / 8
+    return ((n + q - 1) // q) * q
+
+
+def pad_to(arr: np.ndarray, n: int, axis: int = 0) -> np.ndarray:
+    cur = arr.shape[axis]
+    if cur >= n:
+        return arr
+    pad_width = [(0, 0)] * arr.ndim
+    pad_width[axis] = (0, n - cur)
+    return np.pad(arr, pad_width)
+
+
+@dataclass
+class DeviceBatch:
+    """The kernel-facing view of a partition: dict of padded tensors.
+
+    arrays keys: for each leaf path P:
+        P            -> numeric data     [B]
+        P#bytes      -> str bytes        [B, Wb]
+        P#len        -> str lengths      [B]
+        P#valid      -> validity         [B]      (Option leaves only)
+    plus "#rowvalid" -> [B] bool, True for real, normal-case rows.
+    `n` is the real row count, `b` the padded bucket size.
+    """
+
+    arrays: dict[str, torch.Tensor]
+    n: int
+    b: int
+
+
+def _leaf_keys(path: str, leaf):
+    """Device array keys for one leaf. [] for layout-free leaves (Null),
+    None for host-only (Object)."""
+    if isinstance(leaf, NullLeaf):
+        return []
+    if isinstance(leaf, ObjectLeaf):
+        return None
+    keys = [path] if isinstance(leaf, NumericLeaf) \
+        else [path + "#bytes", path + "#len"]
+    if leaf.valid is not None:
+        keys.append(path + "#valid")
+    return keys
+
+
+def stage_partition(part: Partition, device: torch.device) -> DeviceBatch:
+    """Pad the partition's leaves to bucket shapes and copy them to
+    `device`."""
+    n = part.num_rows
+    b = bucket_size(n)
+    arrays: dict[str, torch.Tensor] = {}
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for path, leaf in part.leaves.items():
+        ks = _leaf_keys(path, leaf)
+        if not ks:   # NullLeaf (layout-free) or host-only ObjectLeaf
+            continue
+        if isinstance(leaf, NumericLeaf):
+            arrays[path] = put(pad_to(leaf.data, b))
+        else:
+            wb = bucket_size(max(leaf.width, 1))
+            arrays[path + "#bytes"] = put(pad_to(pad_to(leaf.bytes, b, 0),
+                                                 wb, 1))
+            arrays[path + "#len"] = put(pad_to(leaf.lengths, b))
+        if path + "#valid" in ks:
+            arrays[path + "#valid"] = put(pad_to(leaf.valid, b))
+    rowvalid = np.zeros(b, dtype=np.bool_)
+    rowvalid[:n] = True if part.normal_mask is None else part.normal_mask
+    arrays["#rowvalid"] = put(rowvalid)
+    return DeviceBatch(arrays=arrays, n=n, b=b)
+
+
+# ---------------------------------------------------------------------------
+# rebuild partitions from device outputs (host numpy arrays)
+# ---------------------------------------------------------------------------
+
+def type_from_result_arrays(arrays: dict, path: str) -> Optional[T.Type]:
+    """Reconstruct a leaf/column type from output array keys: the key suffix
+    convention + dtypes fully determine the type, so the rebuilt partition
+    always matches what the stage ACTUALLY produced."""
+    if not any(k == path or k.startswith(path + "#") or
+               k.startswith(path + ".") for k in arrays):
+        return None
+    opt = (path + "#valid") in arrays or (path + "#opt") in arrays
+    if (path + "#bytes") in arrays:
+        return T.option(T.STR) if opt else T.STR
+    if (path + "#null") in arrays:
+        return T.NULL
+    if (path + "#unit") in arrays:
+        return T.option(T.EMPTYTUPLE) if opt else T.EMPTYTUPLE
+    if path in arrays:
+        dt = np.asarray(arrays[path]).dtype
+        if dt == np.bool_:
+            base = T.BOOL
+        elif np.issubdtype(dt, np.integer):
+            base = T.I64
+        else:
+            base = T.F64
+        return T.option(base) if opt else base
+    elts = []
+    i = 0
+    while True:
+        sub = f"{path}.{i}" if path else str(i)
+        et = type_from_result_arrays(arrays, sub)
+        if et is None:
+            break
+        elts.append(et)
+        i += 1
+    if not elts:
+        return None
+    tt = T.tuple_of(*[e.without_option() if opt and e.is_optional() else e
+                      for e in elts]) if opt else T.tuple_of(*elts)
+    return T.option(tt) if opt else tt
+
+
+def partition_from_result_arrays(arrays: dict[str, np.ndarray], n: int,
+                                 columns: Optional[Sequence[str]] = None,
+                                 start_index: int = 0) -> Partition:
+    """Build a Partition directly from stage-output arrays, deriving the
+    schema from the arrays themselves."""
+    col_types = []
+    ci = 0
+    while True:
+        t = type_from_result_arrays(arrays, str(ci))
+        if t is None:
+            break
+        col_types.append(t)
+        ci += 1
+    if not col_types:
+        raise ValueError("no columns found in result arrays")
+    names = tuple(columns) if columns and len(columns) == len(col_types) \
+        else tuple(f"_{i}" for i in range(len(col_types)))
+    schema = T.row_of(names, col_types)
+    leaves: dict[str, Leaf] = {}
+    for ci, ct in enumerate(col_types):
+        for path, lt in flatten_type(ct, str(ci)):
+            leaves[path] = leaf_from_result_arrays(arrays, path, lt, n)
+    return Partition(schema=schema, num_rows=n, leaves=leaves,
+                     start_index=start_index)
+
+
+def leaf_from_result_arrays(arrays: dict, path: str, lt: T.Type,
+                            n: int) -> Leaf:
+    base = lt.without_option() if lt.is_optional() else lt
+    opt = lt.is_optional()
+    if path.endswith("#opt"):
+        return NumericLeaf(np.asarray(arrays[path][:n], dtype=np.bool_))
+    valid = arrays.get(path + "#valid")
+    if valid is None and opt and (path + "#opt") in arrays:
+        valid = arrays[path + "#opt"]
+    valid = None if valid is None else np.asarray(valid[:n], dtype=np.bool_)
+    if base is T.STR:
+        return StrLeaf(
+            np.asarray(arrays[path + "#bytes"][:n], dtype=np.uint8),
+            np.asarray(arrays[path + "#len"][:n], dtype=np.int32),
+            valid)
+    if base is T.NULL:
+        return NullLeaf(n)
+    if base is T.EMPTYTUPLE:
+        if opt:
+            return NumericLeaf(
+                np.zeros(n, dtype=np.bool_),
+                valid if valid is not None else np.ones(n, dtype=np.bool_))
+        return NullLeaf(n)
+    return NumericLeaf(
+        np.asarray(arrays[path][:n], dtype=LEAF_NUMERIC[base]), valid)
+
+
+def gather_partition(part: Partition, out_positions: np.ndarray,
+                     src_indices: np.ndarray, m: int) -> Partition:
+    """New m-row partition with rows src_indices placed at out_positions
+    (other slots zero placeholders, to be filled by resolved rows)."""
+    leaves: dict[str, Leaf] = {}
+    for path, leaf in part.leaves.items():
+        if isinstance(leaf, NumericLeaf):
+            data = np.zeros(m, dtype=leaf.data.dtype)
+            valid = None if leaf.valid is None else np.zeros(m, np.bool_)
+            if len(src_indices):
+                data[out_positions] = leaf.data[src_indices]
+                if valid is not None:
+                    valid[out_positions] = leaf.valid[src_indices]
+            leaves[path] = NumericLeaf(data, valid)
+        elif isinstance(leaf, StrLeaf):
+            b = np.zeros((m, max(leaf.width, 1)), dtype=np.uint8)
+            ln = np.zeros(m, dtype=np.int32)
+            valid = None if leaf.valid is None else np.zeros(m, np.bool_)
+            if len(src_indices):
+                b[out_positions] = leaf.bytes[src_indices]
+                ln[out_positions] = leaf.lengths[src_indices]
+                if valid is not None:
+                    valid[out_positions] = leaf.valid[src_indices]
+            leaves[path] = StrLeaf(b, ln, valid)
+        elif isinstance(leaf, NullLeaf):
+            leaves[path] = NullLeaf(m)
+        else:
+            vals: list = [None] * m
+            for o, s in zip(out_positions.tolist(), src_indices.tolist()):
+                vals[o] = leaf.values[s]
+            leaves[path] = ObjectLeaf(vals)
+    return Partition(schema=part.schema, num_rows=m, leaves=leaves,
+                     start_index=part.start_index)
+
+
+def harmonize_partitions(parts: list) -> list:
+    """Pad every partition's str leaves to the dataset-wide bucketed width
+    so all partitions stage to the same shapes."""
+    widths: dict[str, int] = {}
+    for p in parts:
+        for path, leaf in p.leaves.items():
+            if isinstance(leaf, StrLeaf):
+                widths[path] = max(widths.get(path, 1), leaf.width)
+    for path in widths:
+        widths[path] = bucket_size(widths[path])
+    for p in parts:
+        for path, w in widths.items():
+            leaf = p.leaves.get(path)
+            if isinstance(leaf, StrLeaf) and leaf.width < w:
+                leaf.bytes = pad_to(leaf.bytes, w, axis=1)
+    return parts
+
+
+# ---------------------------------------------------------------------------
+# host decode
+# ---------------------------------------------------------------------------
+
+def _leaf_to_pylist(leaf: Leaf, n: int) -> list:
+    """Bulk-decode one leaf to python values."""
+    if isinstance(leaf, NullLeaf):
+        return [None] * n
+    if isinstance(leaf, ObjectLeaf):
+        return list(leaf.values[:n])
+    if isinstance(leaf, NumericLeaf):
+        vals = leaf.data[:n].tolist()
+        if leaf.valid is not None:
+            v = leaf.valid[:n].tolist()
+            return [x if v[i] else None for i, x in enumerate(vals)]
+        return vals
+    # StrLeaf: one flat buffer + byte slicing beats per-row np indexing
+    w = leaf.bytes.shape[1] if leaf.bytes.ndim == 2 else 1
+    flat = np.ascontiguousarray(leaf.bytes[:n]).tobytes()
+    lens = leaf.lengths[:n].tolist()
+    out = [flat[i * w: i * w + lens[i]].decode("utf-8", "replace")
+           for i in range(n)]
+    if leaf.valid is not None:
+        vv = leaf.valid[:n].tolist()
+        return [s if vv[i] else None for i, s in enumerate(out)]
+    return out
+
+
+def _column_pylist(part: Partition, path: str, t: T.Type, n: int) -> list:
+    base = t.without_option() if t.is_optional() else t
+    opt = t.is_optional()
+    if isinstance(base, T.TupleType):
+        sub = [
+            _column_pylist(part, f"{path}.{j}", T.option(e) if opt else e, n)
+            for j, e in enumerate(base.elements)
+        ]
+        tuples = list(zip(*sub)) if sub else [()] * n
+        if opt:
+            ov = part.leaves[f"{path}#opt"].data[:n].tolist()
+            return [tuples[i] if ov[i] else None for i in range(n)]
+        return tuples
+    if base is T.EMPTYTUPLE:
+        if opt:
+            leaf = part.leaves[path]
+            return [() if leaf.valid[i] else None for i in range(n)]
+        return [()] * n
+    return _leaf_to_pylist(part.leaves[path], n)
+
+
+def partition_to_pylist(part: Partition) -> list:
+    """Bulk row decode: single-column rows collect as bare values."""
+    n = part.num_rows
+    if n == 0:
+        return []
+    cols = [_column_pylist(part, str(ci), ct, n)
+            for ci, ct in enumerate(part.schema.types)]
+    out = list(cols[0]) if len(cols) == 1 else list(zip(*cols))
+    for i, v in part.fallback.items():
+        # Row.from_value semantics: single-field tuples collect bare
+        if len(cols) == 1 and isinstance(v, tuple) and len(v) == 1:
+            out[i] = v[0]
+        else:
+            out[i] = v
+    return out
+
+
+def decode_rows(part: Partition, indices) -> list[Row]:
+    """Bulk-decode the given local row positions into boxed Rows (the
+    interpreter path's input)."""
+    idx = np.asarray(list(indices), dtype=np.int64)
+    m = len(idx)
+    if m == 0:
+        return []
+    cols = part.user_columns
+    single = len(part.schema.types) == 1
+    gp = gather_partition(part, np.arange(m, dtype=np.int64), idx, m)
+    vals = partition_to_pylist(gp)
+    fb = part.fallback
+    rows: list[Row] = []
+    for j, i in enumerate(idx.tolist()):
+        if i in fb:
+            rows.append(Row.from_value(fb[i], cols))
+        elif single:
+            rows.append(Row((vals[j],), cols))
+        else:
+            rows.append(Row(vals[j], cols))
+    return rows
