@@ -8,8 +8,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
   2. build the NFA scan kernel (csrc/nfa_scan.cu) with nvcc;
   3. the kernel against its plain torch version on the card: the pattern
      x string matrix of the reference package's NFA tests, seeded random
-     byte matrices of 1,000,003 rows x 128 bytes, and the log-grep batch at
-     the shape the main path stages; results must match exactly;
+     byte matrices of 1,000,003 rows x 128 bytes, edge inputs (widths 75,
+     128 and 1000, bases that are not 16-byte aligned, row counts around
+     the kernel's block), and the log-grep batch at the shape the main path
+     stages; results must match exactly. Each timed input's kernel time is
+     printed beside the time PERF.md records for the kernel this one
+     replaced;
   4. the dual-mode smoke pipeline through Context() on the card;
   5. the log grep over 1,891,715 generated Apache log lines (seed 17, one
      non-ASCII line in every 100,000), checked against a plain Python loop.
@@ -58,6 +62,13 @@ MATRIX_PATTERNS = ["abc", "a+b", "GET|POST", "a*b", "[0-9]+-[0-9]+",
 # 64 positions of the state word (bit 63 included)
 RANDOM_PATTERNS = ["GET|POST", logs.ERROR_STATUS, "^a.*b$", "b$", "^$",
                    "a*b", "GET /" + "[a-z]" * 57 + "(x|y)", "[ab]" * 64]
+# the edge inputs: 1, 2 and 8 follow chunks, with and without '$'
+EDGE_PATTERNS = [logs.ERROR_STATUS, "b$", "^a.*b$", "[ab]" * 64]
+# ms of the one-thread-per-row kernel this one replaced, as PERF.md records
+# it (H100 80GB HBM3, 700 W): log-grep batch, random rows with 9 and 64
+# positions
+EARLIER_MS = {"log-grep batch": 0.1118, logs.ERROR_STATUS: 0.2972,
+              "[ab]" * 64: 2.036}
 
 
 def card_line() -> str:
@@ -127,6 +138,32 @@ def random_matrix(rng: np.random.Generator, n: int, w: int):
     return mat, lens
 
 
+def edge_inputs(rng: np.random.Generator, rows_per_block: int, dev):
+    """(what, bytes, lens) on the card: widths 75 (byte loads), 128
+    (16-byte loads) and 1000 (eight column chunks); rows 1.. of a
+    contiguous [N+1, 75] matrix and a [N, 128] matrix 4 bytes into its
+    buffer (bases not 16-byte aligned); 1, R-1, R and R+1 rows."""
+    out = []
+    for w in (75, 128, 1000):
+        mat, lens = random_matrix(rng, 3001, w)
+        out.append((f"[3001, {w}]", torch.from_numpy(mat).to(dev),
+                    torch.from_numpy(lens).to(dev)))
+    mat, lens = random_matrix(rng, 3002, 75)
+    out.append(("rows 1.. of [3002, 75]", torch.from_numpy(mat).to(dev)[1:],
+                torch.from_numpy(lens[1:]).to(dev)))
+    mat, lens = random_matrix(rng, 3000, 128)
+    flat = torch.zeros(4 + mat.size, dtype=torch.uint8, device=dev)
+    flat[4:] = torch.from_numpy(mat.ravel()).to(dev)
+    out.append(("[3000, 128] at base + 4", flat[4:].view(3000, 128),
+                torch.from_numpy(lens).to(dev)))
+    r = rows_per_block
+    for n in (1, r - 1, r, r + 1):
+        mat, lens = random_matrix(rng, n, 96)
+        out.append((f"[{n}, 96]", torch.from_numpy(mat).to(dev),
+                    torch.from_numpy(lens).to(dev)))
+    return out
+
+
 def check_kernel(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
     """Kernel against the plain version on the same tensors; returns the
     largest absolute difference (0 = identical)."""
@@ -174,17 +211,25 @@ def main() -> None:
         rx = compile_nfa(pat)
         if rx.n_pos:
             max_err = max(max_err, check_kernel(rx, rb, rl, repr(pat)))
+    edges = edge_inputs(rng, nfa_cuda.rows_per_block(), dev)
+    for pat in EDGE_PATTERNS:
+        rx = compile_nfa(pat)
+        for what, b, l in edges:
+            max_err = max(max_err, check_kernel(rx, b, l,
+                                                f"{pat!r} on {what}"))
+    del edges
     print(f"kernel == plain on {len(MATRIX_PATTERNS)} x "
-          f"{len(MATRIX_STRINGS)} matrix and {len(RANDOM_PATTERNS)} "
-          f"patterns over {RANDOM_ROWS} x {RANDOM_WIDTH} random rows")
+          f"{len(MATRIX_STRINGS)} matrix, {len(RANDOM_PATTERNS)} "
+          f"patterns over {RANDOM_ROWS} x {RANDOM_WIDTH} random rows and "
+          f"{len(EDGE_PATTERNS)} patterns over the edge inputs")
     need = int(rl.to(torch.int64).sum())
     for pat in (logs.ERROR_STATUS, "[ab]" * 64):
         rx = compile_nfa(pat)
         ms, _ = kernel_device_ms(lambda: rx.match(rb, rl), 20)
         bound = (need + 5 * RANDOM_ROWS) / HBM_BYTES_PER_S * 1e3
         print(f"nfa_scan at [{RANDOM_ROWS}, {RANDOM_WIDTH}] random rows, "
-              f"{rx.n_pos} positions ({pat[:24]!r}): kernel {ms:.4f} ms, "
-              f"bound {bound:.4f} ms")
+              f"{rx.n_pos} positions ({pat[:24]!r}): kernel {ms:.4f} ms "
+              f"(earlier kernel {EARLIER_MS[pat]} ms), bound {bound:.4f} ms")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     path = os.path.join(tmp, "access.log")
@@ -214,7 +259,8 @@ def main() -> None:
     bound_ms = (need + 4 * n_rows + n_rows) / HBM_BYTES_PER_S * 1e3
     full_ms = (n_rows * width + 5 * n_rows) / HBM_BYTES_PER_S * 1e3
     print(f"nfa_scan at [{n_rows}, {width}]: kernel {kernel_ms:.4f} ms "
-          f"on the card ({call_ms:.4f} ms of host time per wrapper call), "
+          f"on the card (earlier kernel {EARLIER_MS['log-grep batch']} ms; "
+          f"{call_ms:.4f} ms of host time per wrapper call), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({need} row bytes + lens + out at {HBM_BYTES_PER_S:.3g} B/s; "
           f"all N*W bytes: {full_ms:.4f} ms)")

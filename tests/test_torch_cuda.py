@@ -50,34 +50,71 @@ def _random_batch(seed: int, n: int, w: int):
     return mat, lens
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w", [72, 75])     # 8-byte loads and byte loads
-@pytest.mark.parametrize("pattern", PATTERNS)
-def test_kernel_matches_plain_and_re(pattern, w, cuda_device):
-    mat, lens = _random_batch(11, 1001, w)
-    b = torch.from_numpy(mat).to(cuda_device)
-    l = torch.from_numpy(lens).to(cuda_device)
-    rx = port_nfa.compile_nfa(pattern)
+def _check(rx, pattern, b, l):
+    """The kernel on CUDA tensors b, l against the plain version on the
+    same tensors and against `re` on their rows; one launch per call."""
     before = nfa_cuda.launches
     got = rx.match(b, l).cpu()
     assert torch.equal(got, rx.match_bitmask(b, l).cpu())
     assert nfa_cuda.launches == before + (1 if rx.n_pos else 0)
+    mat, lens = b.cpu().numpy(), l.cpu().numpy()
     rows = [bytes(r[:k]) for r, k in zip(mat, lens)]
     assert got.tolist() == [re.search(pattern.encode(), r) is not None
                             for r in rows]
 
 
+# 8-byte rows (4-byte loads), bytes, 16-byte loads, eight column chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [72, 75, 128, 1000])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_kernel_matches_plain_and_re(pattern, w, cuda_device):
+    mat, lens = _random_batch(11, 1001, w)
+    b = torch.from_numpy(mat).to(cuda_device)
+    l = torch.from_numpy(lens).to(cuda_device)
+    _check(port_nfa.compile_nfa(pattern), pattern, b, l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["a+b$", r'" (4\d\d|5\d\d) ', "^a.*b$",
+                                     "[ab]" * 64])
+def test_kernel_block_and_alignment_edges(pattern, cuda_device):
+    """Row counts around the kernel's block of R rows (1, R-1, R, R+1), and
+    bases that are not 16-byte aligned: rows 1.. of a contiguous [N+1, 75]
+    matrix (byte loads) and a [N, 128] matrix 4 bytes into its buffer
+    (4-byte loads where the aligned matrix takes 16-byte loads)."""
+    rx = port_nfa.compile_nfa(pattern)
+    R = nfa_cuda.rows_per_block()
+    for n in (1, R - 1, R, R + 1):
+        mat, lens = _random_batch(13 + n, n, 96)
+        _check(rx, pattern, torch.from_numpy(mat).to(cuda_device),
+               torch.from_numpy(lens).to(cuda_device))
+    mat, lens = _random_batch(5, 301, 75)
+    b = torch.from_numpy(mat).to(cuda_device)[1:]
+    assert b.is_contiguous() and b.data_ptr() % 16 != 0
+    _check(rx, pattern, b, torch.from_numpy(lens[1:]).to(cuda_device))
+    mat, lens = _random_batch(6, 300, 128)
+    flat = torch.zeros(4 + mat.size, dtype=torch.uint8, device=cuda_device)
+    flat[4:] = torch.from_numpy(mat.ravel()).to(cuda_device)
+    b = flat[4:].view(300, 128)
+    assert b.data_ptr() % 16 == 4
+    _check(rx, pattern, b, torch.from_numpy(lens).to(cuda_device))
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_bad_inputs(cuda_device):
     t = port_nfa.compile_nfa("abc").tables
+    buf = torch.from_numpy(nfa_cuda.pack_tables(t).view(np.int64)).to(
+        cuda_device)
     b = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
     l = torch.zeros(4, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
-        nfa_cuda.match_cuda(t, b, l.to(torch.int64))
+        nfa_cuda.match_cuda(t, buf, b, l.to(torch.int64))
     with pytest.raises(ValueError):
-        nfa_cuda.match_cuda(t, b.t(), l)
+        nfa_cuda.match_cuda(t, buf, b.t(), l)
     with pytest.raises(ValueError):
-        nfa_cuda.match_cuda(t, b, l.cpu())
+        nfa_cuda.match_cuda(t, buf, b, l.cpu())
+    with pytest.raises(ValueError):
+        nfa_cuda.match_cuda(t, buf[:-1], b, l)
 
 
 @pytest.mark.cuda

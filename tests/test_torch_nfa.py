@@ -21,6 +21,7 @@ import torch
 from tuplex_tpu.ops import nfa as ref_nfa
 from tuplex_tpu.ops import regex as ref_regex
 from tuplex_tpu_torch.ops import nfa as port_nfa
+from tuplex_tpu_torch.ops import nfa_cuda
 from tuplex_tpu_torch.ops import regex as port_regex
 from tuplex_tpu_torch.runtime import columns as C
 
@@ -116,6 +117,40 @@ def test_anchored_engine_decision_matches_reference(pattern):
     except Exception:
         want = False
     assert port_regex.anchored_engine_accepts(pattern) == want
+
+
+@pytest.mark.parametrize("pattern", PATTERNS + EXTRA)
+def test_follow_chunks_transition(pattern):
+    """The CUDA kernel's byte-chunked transition: for 512 seeded state sets
+    S, OR over c of F8[c][(S >> 8c) & 0xff] equals the OR of follow[p] over
+    the set bits p of S; F8 from the port's tables equals F8 from the
+    reference's; the kernel's table buffer holds CLASSTAB, F8 (FIRST folded
+    into chunk 0 unless the pattern has '^'), FIRST and LAST."""
+    own = port_nfa.compile_nfa(pattern).tables
+    f8 = port_nfa.follow_chunks(own.follow, own.n_pos)
+    nchunk = (own.n_pos + 7) // 8
+    assert f8.shape == (nchunk, 256) and f8.dtype == np.uint64
+    ref = port_nfa.tables_from_reference(ref_nfa.compile_nfa(pattern))
+    assert np.array_equal(port_nfa.follow_chunks(ref.follow, ref.n_pos), f8)
+    rng = np.random.default_rng(3)
+    live = (1 << own.n_pos) - 1
+    for s in rng.integers(0, 1 << 63, size=512, dtype=np.uint64):
+        S = (int(s) << 1 | int(s) >> 62) & live
+        want = 0
+        for p in range(own.n_pos):
+            if S >> p & 1:
+                want |= int(own.follow[p])
+        got = 0
+        for c in range(nchunk):
+            got |= int(f8[c][(S >> 8 * c) & 0xFF])
+        assert got == want
+    buf = nfa_cuda.pack_tables(own)
+    assert buf.dtype == np.uint64 and buf.shape == (256 * (1 + nchunk) + 2,)
+    assert np.array_equal(buf[:256], own.classtab)
+    seed = np.uint64(0 if own.anchored_start else own.first)
+    f8[:1] |= seed
+    assert np.array_equal(buf[256:-2], f8.ravel())
+    assert buf[-2:].tolist() == [own.first, own.last]
 
 
 def test_too_many_positions_is_not_compilable():

@@ -6,148 +6,300 @@
 // checked against the plain torch version, NFARegex.match_bitmask in
 // tuplex_tpu_torch/ops/nfa.py.
 //
-// Bound: memory. The scan reads each row's bytes once (at most N*W bytes
-// plus 4N bytes of lengths) and writes N bools; the per-byte work is a few
-// integer ops per live NFA position, far below the card's integer rate.
+// Bound: the least time is set by the bytes it must read (each row's
+// in-length bytes once, lengths in, matches out: 0.0135 ms for the log
+// grep's [524288, 96] batch on an H100 at 3.35 TB/s), but what limits it on
+// the card is the per-byte automaton step. On that batch (H100 80GB HBM3,
+// 700 W) the kernel takes 0.050 ms; a copy that only stages the tiles takes
+// 0.023 ms and a copy that only scans (no device-memory loads) 0.042 ms.
+// The scan is bound by its shared-memory table loads: ceil(P/8) + 1 loads
+// of 64 bits for every byte of every row.
 //
 // Design (the Pallas kernel's TPU form is not carried over):
-//   * One thread per row. The state S is one uint64 in a register; its bits
-//     are the live NFA positions (P <= 64 is guaranteed by NFARegex).
-//   * CLASSTAB (256 x u64, 2 KB) and FOLLOW (P x u64, <= 512 B) arrive by
-//     value as a kernel parameter and are copied once per block into shared
-//     memory. Each byte is a table lookup, not a one-hot matmul: Mosaic's
-//     ban on integer indexing has no counterpart here.
-//   * Transition: next = OR of FOLLOW[p] over the set bits p of S, walked
-//     with __ffsll; S' = (next | seed) & CLASSTAB[byte]. The seed is FIRST
-//     at every column, or only at column 0 when the pattern starts with ^.
-//   * Each thread loops over its row's own length, not W: S is zero past
-//     len, so no hit can occur there.
+//   * One block of kRows = 256 threads per 256 consecutive rows, one thread
+//     per row. The state S is one uint64 in a register; its bits are the
+//     live NFA positions (P <= 64 is guaranteed by NFARegex).
+//   * Coalesced row tiles. The block reduces max(min(len, W)) over its rows
+//     and walks column chunks of kCols = 128 bytes up to that maximum, not
+//     up to W. For each chunk the whole block copies the rows x kCols
+//     sub-tile into shared memory, neighbouring threads on neighbouring
+//     addresses: 16-byte cp.async copies when W % 16 == 0 and the base is
+//     16-aligned, else 4-byte cp.async copies when W % 4 == 0 and it is
+//     4-aligned, else bytes. cp.async puts all of a thread's copies in
+//     flight before it waits (plain loads stored one by one waited on each).
+//   * The tile rows are not padded: a row's 16-byte units are XOR-swizzled
+//     by the row (tile_off), so a thread reads its row 16 bytes at a time
+//     and the 8 rows of each quarter-warp hit 8 different bank groups, for
+//     both the copies in and the reads out. (Padding the stride to 132
+//     bytes, conflict-free for 4-byte reads, rules out 16-byte copies.)
+//   * Constant-time transition from byte-chunked follow tables:
+//     F8[c][v] = OR of FOLLOW[8c + b] over the set bits b of v, for
+//     c < NCHUNK = ceil(P / 8), so
+//         S' = (OR over c < NCHUNK of F8[c][(S >> 8c) & 0xff]) & CLASSTAB[byte]
+//     NCHUNK loads and one class load per byte whatever the live set; NCHUNK
+//     is a template argument, the same for every thread of a launch. Without
+//     ^ the host folds FIRST into every F8[0] entry, so the seed costs
+//     nothing; the first byte of a row ORs in FIRST explicitly (the only
+//     seed under ^).
+//   * The tables (CLASSTAB, F8, FIRST, LAST) sit in one device buffer that
+//     NFARegex uploads once per pattern and device (layout in
+//     ops/nfa_cuda.py:pack_tables); each block copies them to shared memory.
+//     Shared memory per block: 2 KB x (1 + NCHUNK) of tables + 32 KB of tile.
+//   * A thread ORs every state into `acc` and tests acc & LAST once per
+//     chunk; once it has matched it skips the rest of its row's scan (it
+//     still takes part in the tile copies and barriers).
 //   * '$' rule: with anchored_end a hit counts only where j+1 == len or
-//     j+1 == end_at (one trailing '\n', python semantics).
-//   * When W is a multiple of 8 and the rows are 8-byte aligned, a thread
-//     reads its row 8 bytes per load.
-// Known weakness, left for later work: one thread per row over a row-major
-// matrix means neighbouring threads read addresses W bytes apart, so warp
-// loads are uncoalesced; L1 catches the rest of each line.
+//     j+1 == end_at (one trailing '\n', python semantics). The thread keeps
+//     the states after its last two bytes and the last byte itself, and
+//     decides at the end; the bytes past min(len, W) are never read.
+//   * Lengths are clamped to [0, W] for the scan; pure-anchor patterns (no
+//     positions) never reach the kernel: the host decides them.
 
 #include <cstdint>
-#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxPositions = 64;
-constexpr int kThreads = 256;
+constexpr int kRows = 256;           // rows per block, one thread each
+constexpr int kCols = 128;           // bytes of each row per column chunk
+constexpr int kUnits = kCols / 16;   // 16-byte units of a row's chunk
+constexpr int kMaxChunks = 8;        // ceil(64 / 8)
+constexpr int kMaxDevices = 64;
 
-struct NfaParams {
-  unsigned long long classtab[256];
-  unsigned long long follow[kMaxPositions];
-  unsigned long long first;
-  unsigned long long last;
-  int anchored_start;
-  int anchored_end;
-  int nullable;
-};
-
-__device__ __forceinline__ unsigned long long step(
-    unsigned long long S, unsigned byte, int j,
-    const unsigned long long* __restrict__ s_class,
-    const unsigned long long* __restrict__ s_follow,
-    const NfaParams& p) {
-  unsigned long long nxt = 0ull;
-  while (S) {
-    int q = __ffsll(static_cast<long long>(S)) - 1;
-    nxt |= s_follow[q];
-    S &= S - 1ull;
-  }
-  unsigned long long seed = (!p.anchored_start || j == 0) ? p.first : 0ull;
-  return (nxt | seed) & s_class[byte];
+// Offset in the tile of byte k of row r's chunk. A row's 16-byte units are
+// XOR-swizzled by the row, so the 8 rows of a quarter-warp that read or
+// write the same unit touch 8 different 16-byte bank groups.
+__device__ __forceinline__ int tile_off(int r, int k) {
+  return r * kCols + ((((k >> 4) ^ r) & (kUnits - 1)) << 4) + (k & 15);
 }
 
-__global__ void __launch_bounds__(kThreads) nfa_scan_kernel(
-    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
-    long long n, long long w, int vec8, const __grid_constant__ NfaParams p,
-    bool* __restrict__ out) {
-  __shared__ unsigned long long s_class[256];
-  __shared__ unsigned long long s_follow[kMaxPositions];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_class[i] = p.classtab[i];
-  for (int i = threadIdx.x; i < kMaxPositions; i += blockDim.x)
-    s_follow[i] = p.follow[i];
-  __syncthreads();
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
 
-  long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const uint8_t* r = bytes + row * w;
-  long long len = lens[row];
-  if (len < 0) len = 0;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
 
-  // end_at: '$' may also match just before one trailing newline
-  long long lastpos = len - 1;
-  if (lastpos < 0) lastpos = 0;
-  if (lastpos > w - 1) lastpos = w - 1;
-  bool trailing_nl = len > 0 && r[lastpos] == 10;
-  long long end_at = trailing_nl ? len - 1 : len;
+template <int NCHUNK>
+__device__ __forceinline__ unsigned long long follow8(
+    unsigned long long S, const unsigned long long* __restrict__ f8) {
+  unsigned long long nxt = 0ull;
+#pragma unroll
+  for (int c = 0; c < NCHUNK; ++c)
+    nxt |= f8[c * 256 + static_cast<unsigned>((S >> (8 * c)) & 0xffull)];
+  return nxt;
+}
 
-  bool matched = false;
-  if (p.nullable) matched = (p.anchored_start && p.anchored_end) ? end_at == 0 : true;
-
-  long long stop = len < w ? len : w;
-  unsigned long long S = 0ull;
-  long long j = 0;
-  if (vec8) {
-    const unsigned long long* r8 = reinterpret_cast<const unsigned long long*>(r);
-    for (; j < stop; j += 8) {
-      unsigned long long word = r8[j >> 3];
-      long long k_end = stop - j < 8 ? stop - j : 8;
-      for (long long k = 0; k < k_end; ++k) {
-        unsigned byte = static_cast<unsigned>((word >> (8 * k)) & 0xffull);
-        S = step(S, byte, static_cast<int>(j + k), s_class, s_follow, p);
-        bool hit = (S & p.last) != 0ull;
-        if (p.anchored_end)
-          hit = hit && (j + k + 1 == len || j + k + 1 == end_at);
-        matched |= hit;
+// Copies columns [c0, cend) of the block's `rows` rows into the shared tile
+// and waits for them. cend - c0 <= kCols and both are multiples of VEC.
+// 16- and 4-byte copies go through cp.async, so every copy of the thread
+// is in flight before it waits; bytes are loaded eight at a time before
+// they are stored.
+template <int VEC>
+__device__ __forceinline__ void load_tile(uint8_t* __restrict__ tile,
+                                          const uint8_t* __restrict__ base,
+                                          long long w, int rows, int c0,
+                                          int cend) {
+  constexpr int kPerRow = kCols / VEC;   // copies per row of a full chunk
+  const int ncol = cend - c0;
+  const int total = rows * kPerRow;
+  if constexpr (VEC == 1) {
+    for (int i0 = threadIdx.x; i0 < total; i0 += 8 * kRows) {
+      uint8_t v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = i0 + q * kRows, r = i / kPerRow, k = i % kPerRow;
+        if (i < total && k < ncol)
+          v[q] = __ldg(base + static_cast<long long>(r) * w + c0 + k);
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = i0 + q * kRows, r = i / kPerRow, k = i % kPerRow;
+        if (i < total && k < ncol) tile[tile_off(r, k)] = v[q];
       }
     }
   } else {
-    for (; j < stop; ++j) {
-      S = step(S, r[j], static_cast<int>(j), s_class, s_follow, p);
-      bool hit = (S & p.last) != 0ull;
-      if (p.anchored_end) hit = hit && (j + 1 == len || j + 1 == end_at);
-      matched |= hit;
+    for (int i = threadIdx.x; i < total; i += kRows) {
+      const int r = i / kPerRow, k = (i % kPerRow) * VEC;
+      if (k >= ncol) continue;
+      const uint8_t* src = base + static_cast<long long>(r) * w + c0 + k;
+      if constexpr (VEC == 16)
+        cp_async16(tile + tile_off(r, k), src);
+      else
+        cp_async4(tile + tile_off(r, k), src);
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
-  out[row] = matched;
 }
+
+template <int NCHUNK, int VEC>
+__global__ void __launch_bounds__(kRows) nfa_scan_kernel(
+    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
+    long long n, long long w, const unsigned long long* __restrict__ tables,
+    int anchored_start, int anchored_end, int nullable,
+    bool* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_wmax[kRows / 32];
+  unsigned long long* s_class = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* s_f8 = s_class + 256;
+  uint8_t* tile = reinterpret_cast<uint8_t*>(s_f8 + 256 * NCHUNK);
+
+  for (int i = threadIdx.x; i < 256 * (1 + NCHUNK); i += kRows)
+    s_class[i] = tables[i];
+  const unsigned long long first = tables[256 * (1 + NCHUNK)];
+  const unsigned long long last = tables[256 * (1 + NCHUNK) + 1];
+
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(n - row0 < kRows ? n - row0 : kRows);
+  const long long row = row0 + threadIdx.x;
+  long long len = 0;
+  if (threadIdx.x < rows) {
+    len = lens[row];
+    if (len < 0) len = 0;
+  }
+  const int stop = static_cast<int>(len < w ? len : w);
+
+  const int wmax = __reduce_max_sync(0xffffffffu, static_cast<unsigned>(stop));
+  if ((threadIdx.x & 31) == 0) s_wmax[threadIdx.x >> 5] = wmax;
+  __syncthreads();
+  int maxlen = 0;
+#pragma unroll
+  for (int k = 0; k < kRows / 32; ++k) maxlen = max(maxlen, s_wmax[k]);
+  // columns worth loading: up to maxlen, rounded up to whole loads
+  const int lim = static_cast<int>(
+      min(w, static_cast<long long>((maxlen + VEC - 1) / VEC * VEC)));
+
+  // a nullable pattern matches at position 0, unless it is '^...$'
+  const bool known = nullable && !(anchored_start && anchored_end);
+  unsigned long long S = 0ull, Sprev = 0ull, acc = 0ull;
+  unsigned long long seed = first;   // ORed into the row's first byte only
+  unsigned lastbyte = 0;
+  const uint8_t* base = bytes + row0 * w;
+
+  for (int c0 = 0; c0 < maxlen; c0 += kCols) {
+    if (c0 > 0) __syncthreads();   // the previous chunk has been scanned
+    load_tile<VEC>(tile, base, w, rows, c0, min(c0 + kCols, lim));
+    __syncthreads();
+    const bool done = known || (!anchored_end && (acc & last) != 0ull);
+    const int nb = min(stop - c0, kCols);   // this row's bytes in the chunk
+    if (done || nb <= 0) continue;
+    const int t = threadIdx.x;
+    int k = 0;
+    for (; k + 16 <= nb; k += 16) {
+      const uint4 q = *reinterpret_cast<const uint4*>(tile + tile_off(t, k));
+      const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+      unsigned long long s = (follow8<NCHUNK>(S, s_f8) | seed) &
+                             s_class[words[0] & 0xffu];
+      unsigned long long a = s;
+#pragma unroll
+      for (int b = 1; b < 15; ++b) {
+        s = follow8<NCHUNK>(s, s_f8) &
+            s_class[(words[b >> 2] >> (8 * (b & 3))) & 0xffu];
+        a |= s;
+      }
+      Sprev = s;
+      S = follow8<NCHUNK>(s, s_f8) & s_class[words[3] >> 24];
+      acc |= a | S;
+      seed = 0ull;
+    }
+    for (; k < nb; ++k) {
+      Sprev = S;
+      S = (follow8<NCHUNK>(S, s_f8) | seed) & s_class[tile[tile_off(t, k)]];
+      acc |= S;
+      seed = 0ull;
+    }
+    if (stop <= c0 + kCols) lastbyte = tile[tile_off(t, stop - 1 - c0)];
+  }
+
+  bool matched;
+  if (!anchored_end) {
+    matched = known || (acc & last) != 0ull;
+  } else {
+    // end_at = len - 1 when byte min(len, W) - 1 is '\n', else len
+    const bool nl = stop > 0 && lastbyte == 10u;
+    bool hit;
+    if (stop == len)        // states after bytes len-1 and len-2 were kept
+      hit = (S & last) != 0ull || (nl && (Sprev & last) != 0ull);
+    else                    // len > W: only j = W-1 = len-2 can count
+      hit = len == w + 1 && nl && (S & last) != 0ull;
+    const bool empty = len == 0 || (len == 1 && nl);   // end_at == 0
+    matched = hit || (nullable && (!anchored_start || empty));
+  }
+  if (threadIdx.x < rows) out[row] = matched;
+}
+
+using KernelFn = void (*)(const uint8_t*, const int32_t*, long long,
+                          long long, const unsigned long long*, int, int, int,
+                          bool*);
+
+template <int NCHUNK>
+KernelFn pick_vec(int vec) {
+  if (vec == 16) return nfa_scan_kernel<NCHUNK, 16>;
+  if (vec == 4) return nfa_scan_kernel<NCHUNK, 4>;
+  return nfa_scan_kernel<NCHUNK, 1>;
+}
+
+KernelFn pick_kernel(int nchunk, int vec) {
+  switch (nchunk) {
+    case 1: return pick_vec<1>(vec);
+    case 2: return pick_vec<2>(vec);
+    case 3: return pick_vec<3>(vec);
+    case 4: return pick_vec<4>(vec);
+    case 5: return pick_vec<5>(vec);
+    case 6: return pick_vec<6>(vec);
+    case 7: return pick_vec<7>(vec);
+    default: return pick_vec<8>(vec);
+  }
+}
+
+// dynamic shared memory raised past 48 KB, once per device and kernel
+bool g_smem_set[kMaxDevices][kMaxChunks][3];
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. The tables are host arrays; they
-// travel to the card inside the kernel's parameter block. Returns the
-// cudaGetLastError() code of the launch (0 = launched).
+// Rows per block, one thread each (the tests probe the block edges).
+extern "C" int tpx_nfa_rows_per_block() { return kRows; }
+
+// Plain C entry point, loaded with ctypes. `tables` is the device buffer of
+// ops/nfa_cuda.py:pack_tables (256 * (1 + n_chunks) + 2 uint64). Launches on
+// `stream`; returns the cudaGetLastError() code of the launch (0 =
+// launched).
 extern "C" int tpx_nfa_scan(const void* bytes, const void* lens, long long n,
-                            long long w, int vec8,
-                            const unsigned long long* classtab,
-                            const unsigned long long* follow, int n_pos,
-                            unsigned long long first, unsigned long long last,
+                            long long w, const void* tables, int n_chunks,
                             int anchored_start, int anchored_end, int nullable,
                             void* out, void* stream) {
-  if (n_pos < 0 || n_pos > kMaxPositions || w < 1 || n < 0) {
+  if (n_chunks < 1 || n_chunks > kMaxChunks || w < 1 || w > (1ll << 30) ||
+      n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  NfaParams p;
-  std::memset(&p, 0, sizeof(p));
-  std::memcpy(p.classtab, classtab, sizeof(p.classtab));
-  std::memcpy(p.follow, follow, sizeof(unsigned long long) * n_pos);
-  p.first = first;
-  p.last = last;
-  p.anchored_start = anchored_start;
-  p.anchored_end = anchored_end;
-  p.nullable = nullable;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  nfa_scan_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(bytes);
+  const int vec = (w % 16 == 0 && addr % 16 == 0) ? 16
+                  : (w % 4 == 0 && addr % 4 == 0) ? 4 : 1;
+  const KernelFn fn = pick_kernel(n_chunks, vec);
+  const size_t smem =
+      sizeof(unsigned long long) * 256 * (1 + n_chunks) + kRows * kCols;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vi = vec == 16 ? 2 : vec == 4 ? 1 : 0;
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!g_smem_set[dev][n_chunks - 1][vi]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_smem_set[dev][n_chunks - 1][vi] = true;
+  }
+  const long long blocks = (n + kRows - 1) / kRows;
+  fn<<<static_cast<unsigned>(blocks), kRows, smem,
+       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(lens), n,
-      w, vec8, p, static_cast<bool*>(out));
+      w, static_cast<const unsigned long long*>(tables), anchored_start,
+      anchored_end, nullable, static_cast<bool*>(out));
   return static_cast<int>(cudaGetLastError());
 }

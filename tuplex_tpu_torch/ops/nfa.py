@@ -189,6 +189,23 @@ def tables_from_reference(npz_like) -> NFATables:
         anchored_end=bool(get("anchored_end")))
 
 
+def follow_chunks(follow, n_pos: int) -> np.ndarray:
+    """Byte-chunked follow tables, uint64 [ceil(n_pos / 8), 256]:
+    F8[c][v] is the OR of follow[8c + b] over the set bits b of v. The
+    successors of a state set S are then the OR over c of
+    F8[c][(S >> 8c) & 0xff], a fixed number of lookups whatever S holds
+    (the CUDA kernel's transition)."""
+    nchunk = (n_pos + 7) // 8
+    fol = np.zeros(nchunk * 8, dtype=np.uint64)
+    fol[:n_pos] = np.asarray(follow, dtype=np.uint64)[:n_pos]
+    fol = fol.reshape(nchunk, 8)
+    bits = (np.arange(256)[None, :] >> np.arange(8)[:, None]) & 1  # [8, 256]
+    f8 = np.zeros((nchunk, 256), dtype=np.uint64)
+    for b in range(8):
+        f8 |= np.where(bits[b][None, :] == 1, fol[:, b:b + 1], np.uint64(0))
+    return f8
+
+
 def _signed(mask: int) -> int:
     """A 64-bit mask as the int64 with the same bits."""
     return mask - (1 << 64) if mask >= 1 << 63 else mask
@@ -239,6 +256,7 @@ class NFARegex:
             nullable=frag.nullable, anchored_start=anchored_start,
             anchored_end=anchored_end)
         self._dev_tables: dict = {}
+        self._kernel_bufs: dict = {}
 
     @property
     def n_pos(self) -> int:
@@ -262,8 +280,9 @@ class NFARegex:
         if bytes_.is_cuda:
             from . import nfa_cuda
 
-            return nfa_cuda.match_cuda(self.tables, bytes_.contiguous(),
-                                       lens.contiguous())
+            return nfa_cuda.match_cuda(
+                self.tables, self._kernel_tables(bytes_.device),
+                bytes_.contiguous(), lens.contiguous())
         return self.match_bitmask(bytes_, lens)
 
     @staticmethod
@@ -295,6 +314,18 @@ class NFARegex:
             t = self.tables
             hit = self._dev_tables[key] = torch.from_numpy(
                 t.classtab.view(np.int64).copy()).to(device)
+        return hit
+
+    def _kernel_tables(self, device):
+        """The CUDA kernel's table buffer (nfa_cuda.pack_tables), uploaded
+        once per device."""
+        key = str(device)
+        hit = self._kernel_bufs.get(key)
+        if hit is None:
+            from . import nfa_cuda
+
+            hit = self._kernel_bufs[key] = torch.from_numpy(
+                nfa_cuda.pack_tables(self.tables).view(np.int64)).to(device)
         return hit
 
     def match_bitmask(self, bytes_, lens):

@@ -2,8 +2,9 @@
 
 Replaces the reference package's TPU kernel,
 `tuplex_tpu/ops/pallas_nfa.py:_build_kernel` (driven by `match_pallas`).
-The kernel is bounded by memory: it reads each row's bytes once. See the
-source for its design.
+Its least time is set by the bytes it reads (each row's bytes once); on
+the card it is limited by the per-byte automaton step, a fixed number of
+shared-memory table lookups per byte. See the source for its design.
 
 The library is compiled by `nvcc` for sm_90a at first use into
 `tuplex_tpu_torch/_build/` (a plain C interface loaded with ctypes), so a
@@ -22,6 +23,8 @@ import threading
 
 import numpy as np
 import torch
+
+from .nfa import follow_chunks
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "nfa_scan.cu")
@@ -77,28 +80,47 @@ def _load():
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p,          # bytes, lens
                 ctypes.c_longlong, ctypes.c_longlong,      # n, w
-                ctypes.c_int,                              # vec8
-                ctypes.c_void_p, ctypes.c_void_p,          # classtab, follow
-                ctypes.c_int,                              # n_pos
-                ctypes.c_ulonglong, ctypes.c_ulonglong,    # first, last
+                ctypes.c_void_p, ctypes.c_int,             # tables, n_chunks
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ^, $, nullable
                 ctypes.c_void_p, ctypes.c_void_p,          # out, stream
             ]
             fn.restype = ctypes.c_int
+            lib.tpx_nfa_rows_per_block.argtypes = []
+            lib.tpx_nfa_rows_per_block.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def match_cuda(tables, bytes_: torch.Tensor,
+def rows_per_block() -> int:
+    """Rows one block of the kernel scans (one thread each)."""
+    return _load().tpx_nfa_rows_per_block()
+
+
+def pack_tables(tables) -> np.ndarray:
+    """The kernel's table buffer for `tables` (ops.nfa.NFATables), uint64
+    [256 * (1 + n_chunks) + 2]: CLASSTAB, then F8 (ops.nfa.follow_chunks)
+    chunk by chunk, then FIRST and LAST. Without '^' FIRST is ORed into
+    every F8[0] entry, so the transition itself seeds every byte."""
+    f8 = follow_chunks(tables.follow, tables.n_pos)
+    if not tables.anchored_start:
+        f8[:1] |= np.uint64(tables.first)
+    return np.concatenate([
+        np.asarray(tables.classtab, dtype=np.uint64), f8.ravel(),
+        np.array([tables.first, tables.last], dtype=np.uint64)])
+
+
+def match_cuda(tables, table_buf: torch.Tensor, bytes_: torch.Tensor,
                lens: torch.Tensor) -> torch.Tensor:
     """matched [N] bool for `tables` (ops.nfa.NFATables, n_pos >= 1) over
-    bytes_ u8 [N, W] and lens int32 [N] on one CUDA device. Launches the
-    kernel on the current stream; raises if it cannot."""
+    bytes_ u8 [N, W] and lens int32 [N] on one CUDA device. `table_buf` is
+    pack_tables(tables) on that device, as int64 (NFARegex keeps one per
+    device). Launches the kernel on the current stream; raises if it
+    cannot."""
     global launches
-    if not (bytes_.is_cuda and lens.is_cuda and
-            bytes_.device == lens.device):
-        raise ValueError("nfa_scan: bytes and lens must be on one CUDA "
-                         "device")
+    if not (bytes_.is_cuda and lens.is_cuda and table_buf.is_cuda and
+            bytes_.device == lens.device == table_buf.device):
+        raise ValueError("nfa_scan: bytes, lens and tables must be on one "
+                         "CUDA device")
     if bytes_.dtype != torch.uint8 or lens.dtype != torch.int32:
         raise TypeError(f"nfa_scan: want uint8 bytes and int32 lens, got "
                         f"{bytes_.dtype} and {lens.dtype}")
@@ -110,20 +132,20 @@ def match_cuda(tables, bytes_: torch.Tensor,
         raise ValueError("nfa_scan: inputs must be contiguous")
     if not 1 <= tables.n_pos <= 64:
         raise ValueError(f"nfa_scan: {tables.n_pos} positions (want 1..64)")
+    n_chunks = (tables.n_pos + 7) // 8
+    if table_buf.dtype != torch.int64 or not table_buf.is_contiguous() or \
+            table_buf.numel() != 256 * (1 + n_chunks) + 2:
+        raise ValueError("nfa_scan: table_buf is not pack_tables(tables)")
     n, w = bytes_.shape
     out = torch.empty(n, dtype=torch.bool, device=bytes_.device)
     if n == 0:
         return out
     fn = _load().tpx_nfa_scan
-    classtab = np.ascontiguousarray(tables.classtab, dtype=np.uint64)
-    follow = np.zeros(64, dtype=np.uint64)
-    follow[: tables.n_pos] = tables.follow
-    vec8 = int(w % 8 == 0 and bytes_.data_ptr() % 8 == 0)
     with torch.cuda.device(bytes_.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(bytes_.data_ptr(), lens.data_ptr(), n, w, vec8,
-                classtab.ctypes.data, follow.ctypes.data, tables.n_pos,
-                tables.first, tables.last, int(tables.anchored_start),
+        # the raw handle, without building a torch.cuda.Stream per call
+        stream = torch._C._cuda_getCurrentRawStream(bytes_.device.index)
+        rc = fn(bytes_.data_ptr(), lens.data_ptr(), n, w,
+                table_buf.data_ptr(), n_chunks, int(tables.anchored_start),
                 int(tables.anchored_end), int(tables.nullable),
                 out.data_ptr(), stream)
     if rc != 0:
