@@ -16,7 +16,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
      replaced;
   4. the dual-mode smoke pipeline through Context() on the card;
   5. the log grep over 1,891,715 generated Apache log lines (seed 17, one
-     non-ASCII line in every 100,000), checked against a plain Python loop.
+     non-ASCII line in every 100,000), checked against a plain Python loop;
+  6. Zillow Z1 over 1,000,000 generated rows (seed 42, about 148 MB of
+     CSV): the CSV source timed apart (read, split, byte matrices), then
+     the pipeline through Context() on the card, checked against the plain
+     Python loop on the same file (rows, order and types).
 
 It prints one JSON line of kernel numbers, then the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs CUDA
@@ -41,12 +45,15 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
 
 from tuplex_tpu_torch import Context                      # noqa: E402
-from tuplex_tpu_torch.models import logs                  # noqa: E402
+from tuplex_tpu_torch.io import csvsource                 # noqa: E402
+from tuplex_tpu_torch.models import logs, zillow          # noqa: E402
 from tuplex_tpu_torch.ops import nfa_cuda                 # noqa: E402
 from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
 
 LOG_LINES = 1_891_715       # NASA-HTTP, July 1995: one month of requests
+ZILLOW_ROWS = 1_000_000     # cut from a full scrape for the time limit
+ZILLOW_SEED = 42
 NON_ASCII_EVERY = 100_000
 RANDOM_ROWS = 1_000_003     # not a multiple of any block size
 RANDOM_WIDTH = 128
@@ -174,6 +181,69 @@ def check_kernel(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
     if err:
         raise AssertionError(f"kernel != plain version on {what}")
     return err
+
+
+def zillow_phase(tmp: str) -> None:
+    """Z1 on the card against the plain Python loop on the same file."""
+    path = os.path.join(tmp, "zillow.csv")
+    t0 = time.perf_counter()
+    zillow.generate_csv(path, ZILLOW_ROWS, seed=ZILLOW_SEED)
+    print(f"zillow: generated {ZILLOW_ROWS} rows, "
+          f"{os.path.getsize(path)} bytes, in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the CSV source alone, the same work the job does
+    stat = Context().csv(path)._op.parent.stat
+    t0 = time.perf_counter()
+    with open(path, "rb") as fp:
+        data = fp.read()
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csvsource._split_records(data, ord(stat.delimiter), ord(stat.quotechar),
+                             stat.num_columns, stat.has_header)
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = list(csvsource.csv_partitions(data, stat,
+                                          Context().options_store))
+    parts_s = time.perf_counter() - t0
+    print(f"zillow CSV source: read {read_s:.3f} s, split {split_s:.3f} s, "
+          f"byte matrices {parts_s - split_s:.3f} s (split and matrices "
+          f"{parts_s:.3f} s) -> {len(parts)} partitions, "
+          f"{sum(len(p.fallback) for p in parts)} boxed rows")
+    del data, parts
+
+    t0 = time.perf_counter()
+    want = zillow.run_reference_python(path)
+    ref_s = time.perf_counter() - t0
+    ctx = Context()
+    t0 = time.perf_counter()
+    ds = zillow.build_pipeline(ctx.csv(path))
+    got = ds.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if got != want or [tuple(map(type, r)) for r in got] != \
+            [tuple(map(type, r)) for r in want]:
+        bad = next((i for i, (g, w) in enumerate(zip(got, want))
+                    if g != w), min(len(got), len(want)))
+        raise AssertionError(f"zillow: {len(got)} rows != python "
+                             f"{len(want)} rows; first difference at "
+                             f"row {bad}")
+    m = ctx.metrics
+    if m.stages[-1]["tier"] != "compiled":
+        raise AssertionError("zillow: the stage did not compile")
+    if not 0 < m.interpreterRows() < ZILLOW_ROWS // 10:
+        raise AssertionError(f"zillow: {m.interpreterRows()} interpreter "
+                             "rows")
+    print(f"zillow Z1: {ZILLOW_ROWS} rows -> {len(got)} rows in "
+          f"{wall:.3f} s ({ZILLOW_ROWS / wall:.0f} rows/s; python loop "
+          f"{ref_s:.3f} s), exceptions {ds.exception_counts()}, "
+          f"interpreter rows {m.interpreterRows()}, device error rows "
+          f"{m.deviceErrorRows()}, fast path {m.fastPathWallTime():.3f} s, "
+          f"slow path {m.slowPathWallTime():.3f} s, backend "
+          f"{m.totalWallTime():.3f} s (fast + slow + merge), outside the "
+          f"backend {wall - m.totalWallTime():.3f} s (sniff, CSV source, "
+          f"results to Python)")
+    os.remove(path)
 
 
 def main() -> None:
@@ -313,6 +383,9 @@ def main() -> None:
           f"{wall - m.totalWallTime():.3f} s (source read and encode, "
           f"results to Python)")
     os.remove(path)
+
+    # 6 --------------------------------------------------------------
+    zillow_phase(tmp)
     os.rmdir(tmp)
 
     print(json.dumps({"kernels": [{

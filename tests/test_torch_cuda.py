@@ -1,5 +1,6 @@
 """tuplex_tpu_torch on the card: the CUDA NFA scan against its plain torch
-version, and the two pipelines through Context() on CUDA.
+version, the string kernels on CUDA against the same kernels on the CPU,
+and the pipelines (smoke, log grep, Zillow Z1) through Context() on CUDA.
 
 Every test here is marked `cuda` and skips without a GPU. This file
 imports neither jax nor tuplex_tpu, so it runs on a GPU host without them:
@@ -7,7 +8,9 @@ imports neither jax nor tuplex_tpu, so it runs on a GPU host without them:
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Oracles: the plain version (`NFARegex.match_bitmask`) on the same CUDA
-tensors, Python `re`, and a plain Python loop. Tolerance: exact.
+tensors, Python `re`, the CPU run of each string kernel (itself held
+against the reference package by tests/test_torch_strings.py), and a
+plain Python loop. Tolerance: exact.
 """
 
 import re
@@ -17,9 +20,11 @@ import pytest
 import torch
 
 import tuplex_tpu_torch
-from tuplex_tpu_torch.models import logs
+from tuplex_tpu_torch.models import logs, zillow
 from tuplex_tpu_torch.ops import nfa as port_nfa
 from tuplex_tpu_torch.ops import nfa_cuda
+from tuplex_tpu_torch.ops import strings as S
+from tuplex_tpu_torch.runtime import columns as C
 
 PATTERNS = ["abc", "a+b", "GET|POST", "a*b", "[0-9]+-[0-9]+", "^abc",
             "abc$", "^a.*b$", r"\d+", "(ab)+", "^$", "b$",
@@ -132,3 +137,59 @@ def test_pipelines_on_cuda(tmp_path, cuda_device):
         logs.run_grep_reference(path)
     assert nfa_cuda.launches > before
     assert ctx.metrics.interpreterRows() == 5
+
+
+STRING_ROWS = ["", " 42", "+7", "-0", "1_000", "N/A", "0210A", "3 bds , 2 ba",
+               "9223372036854775807", "-9223372036854775808",
+               "9223372036854775808", "12345678901234567890", "\u0661",
+               "$1,200/mo", "House For Sale", "a,,b,", "aaaa", "abab",
+               "caf\u00e9", " " * 30 + "8", "x" * 40]
+
+STRING_OPS = {
+    "lower": lambda b, l: S.lower(b, l),
+    "upper": lambda b, l: S.upper(b, l),
+    "contains": lambda b, l: S.contains_const(b, l, "ab"),
+    "rfind": lambda b, l: S.find_const(b, l, ",", reverse=True),
+    "replace-delete": lambda b, l: S.replace_const(b, l, ",", ""),
+    "replace-grow": lambda b, l: S.replace_const(b, l, "a", "xyz"),
+    "replace-overlap": lambda b, l: S.replace_const(b, l, "aa", "b"),
+    "concat": lambda b, l: S.concat(b, l, b, l),
+    "equals": lambda b, l: S.equals(b, l, *S.broadcast_const(
+        "aaaa", b.shape[0], b.device)),
+    "char_at": lambda b, l: S.char_at(b, l, torch.zeros_like(l)),
+    "parse_i64": lambda b, l: S.parse_i64(b, l),
+    "parse_i64-wide": lambda b, l: S.parse_i64(
+        torch.nn.functional.pad(b, (0, 40)), l),
+    "format_i64": lambda b, l: S.format_i64(
+        torch.tensor([0, 7, -42, 99999, -2 ** 63, 2 ** 63 - 1,
+                      10 ** 18], dtype=torch.int64, device=b.device),
+        width=5, pad_zero=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(STRING_OPS))
+def test_string_kernels_cuda_match_cpu(op, cuda_device):
+    leaf = C.encode_str_leaf(STRING_ROWS, False)
+    b = torch.from_numpy(np.ascontiguousarray(leaf.bytes))
+    l = torch.from_numpy(leaf.lengths)
+    want = STRING_OPS[op](b, l)
+    got = STRING_OPS[op](b.to(cuda_device), l.to(cuda_device))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w), op
+
+
+@pytest.mark.cuda
+def test_zillow_on_cuda(tmp_path, cuda_device):
+    path = str(tmp_path / "z.csv")
+    zillow.generate_csv(path, 2000, seed=7)
+    ctx = tuplex_tpu_torch.Context()
+    ds = zillow.build_pipeline(ctx.csv(path))
+    assert ds.collect() == zillow.run_reference_python(path)
+    assert ds.exception_counts() == {"ValueError": 62, "TypeError": 4,
+                                     "AttributeError": 34}
+    assert ctx.metrics.stages[-1]["tier"] == "compiled"
+    assert ctx.metrics.interpreterRows() == 109

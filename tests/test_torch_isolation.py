@@ -1,6 +1,6 @@
-"""tuplex_tpu_torch stands alone: it runs with `jax` and `tuplex_tpu`
-blocked from import, and without CUDA it refuses to pick a device unless
-the caller names the CPU."""
+"""tuplex_tpu_torch stands alone: it runs with `jax`, `tuplex_tpu` and
+`pyarrow` blocked from import, and without CUDA it refuses to pick a device
+unless the caller names the CPU."""
 
 import ast
 import os
@@ -43,6 +43,38 @@ def test_smoke_pipeline_with_jax_blocked(tmp_path):
         "[(1, 1), (2, 4), (4, 16)] {'TypeError': 1} 1", "[]"]
 
 
+def test_zillow_csv_with_jax_and_pyarrow_blocked(tmp_path):
+    """The CSV path needs no pyarrow: the GPU host has none."""
+    script = tmp_path / "run.py"
+    script.write_text(textwrap.dedent(f"""
+        import sys
+
+        BLOCKED = ("jax", "jaxlib", "tuplex_tpu", "pyarrow")
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import tuplex_tpu_torch
+        from tuplex_tpu_torch.models import zillow
+        path = {str(tmp_path / "z.csv")!r}
+        zillow.generate_csv(path, 300, seed=7)
+        ctx = tuplex_tpu_torch.Context(device="cpu")
+        got = zillow.build_pipeline(ctx.csv(path)).collect()
+        print(len(got) > 100, got == zillow.run_reference_python(path),
+              ctx.metrics.stages[-1]["tier"])
+        print(sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED))
+    """))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines() == ["True True compiled", "[]"]
+
+
 def test_context_without_cuda_raises(monkeypatch):
     import torch
 
@@ -58,7 +90,8 @@ def test_context_without_cuda_raises(monkeypatch):
 
 
 def test_package_imports_neither_jax_nor_reference():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "torch_zillow_profile.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:
@@ -71,4 +104,4 @@ def test_package_imports_neither_jax_nor_reference():
                 names = [node.module or ""]
             for name in names:
                 assert name.split(".")[0] not in (
-                    "jax", "jaxlib", "tuplex_tpu"), (path, name)
+                    "jax", "jaxlib", "tuplex_tpu", "pyarrow"), (path, name)

@@ -22,6 +22,14 @@ from tuplex_tpu_torch.plan import physical
 from tuplex_tpu_torch.runtime import columns as C
 
 
+@pytest.fixture(autouse=True)
+def _private_aot_store(tmp_path, monkeypatch):
+    """The reference package keeps compiled stages in an on-disk store
+    that every process of one HOME shares; this file's reference runs use
+    a store of their own."""
+    monkeypatch.setenv("TUPLEX_AOT_CACHE", str(tmp_path / "aot"))
+
+
 def _port():
     return tuplex_tpu_torch.Context(device="cpu")
 
@@ -134,7 +142,7 @@ def test_not_compilable_interprets_like_reference(kind):
     rows = ["GET /a", "post /b", "GET /c", "héllo", ""]
     if kind == "method":
         def build(ds):
-            return ds.map(lambda s: s.upper())
+            return ds.map(lambda s: s.title())
     else:
         def build(ds):
             return ds.filter(lambda s: re.search("^GET", s))

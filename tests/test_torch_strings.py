@@ -92,3 +92,149 @@ def test_take_cols_and_non_ascii_rows():
                                   np.asarray(RS.non_ascii_rows(b, l)))
     assert PS.non_ascii_rows(tb, tl).tolist() == \
         [not s.isascii() for s in CORPUS]
+
+
+# ---------------------------------------------------------------------------
+# the kernels of the Zillow pipeline and the CSV decode
+# ---------------------------------------------------------------------------
+
+def _enc(values):
+    leaf = C.encode_str_leaf(values, False)
+    b = np.ascontiguousarray(leaf.bytes)
+    return b, leaf.lengths, torch.from_numpy(b), torch.from_numpy(leaf.lengths)
+
+
+def _seeded_words(seed, n=64):
+    """Seeded rows over a small alphabet with the needles below, commas,
+    digits, case and empty rows."""
+    rng = np.random.default_rng(seed)
+    parts = ["a", "b", "ab", ",", ", ", "Sale", "rent", "HOUSE", "$",
+             "1", "23", "/mo", " ", "aa", "x"]
+    rows = ["".join(rng.choice(parts, size=rng.integers(0, 9)))
+            for _ in range(n)]
+    return rows + ["", "aaaa", "abab", ",,,", "é,ü"]
+
+
+@pytest.mark.parametrize("fn", ["lower", "upper"])
+def test_case_maps_match_reference(fn):
+    b, l, tb, tl = _enc(_seeded_words(11) + CORPUS)
+    gb, gl = getattr(PS, fn)(tb, tl)
+    wb, wl = getattr(RS, fn)(b, l)
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+
+
+@pytest.mark.parametrize("needle", ["a", "ab", "sale", ", ", "", "zz"])
+def test_contains_const_matches_reference(needle):
+    rows = _seeded_words(12)
+    b, l, tb, tl = _enc(rows)
+    got = PS.contains_const(tb, tl, needle).numpy()
+    np.testing.assert_array_equal(got,
+                                  np.asarray(RS.contains_const(b, l, needle)))
+    assert got.tolist() == [needle in s for s in rows]
+
+
+@pytest.mark.parametrize("old,new", [(",", ""), (",", ";"), ("ab", "X"),
+                                     ("a", "bb"), ("aa", "b"), ("ab", ""),
+                                     ("aa", "aaa"), (", ", "::"),
+                                     ("nope", "y")])
+def test_replace_const_matches_reference(old, new):
+    rows = _seeded_words(13)
+    b, l, tb, tl = _enc(rows)
+    gb, gl = PS.replace_const(tb, tl, old, new)
+    wb, wl = RS.replace_const(b, l, old, new)
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    got = [bytes(gb.numpy()[i, : gl[i]]).decode() for i in range(len(rows))]
+    assert got == [s.replace(old, new) for s in rows]
+
+
+def test_concat_and_equals_match_reference():
+    rows = _seeded_words(14)
+    other = list(reversed(rows))
+    a, al, ta, tal = _enc(rows)
+    b, bl, tb, tbl = _enc(other)
+    gb, gl = PS.concat(ta, tal, tb, tbl)
+    wb, wl = RS.concat(a, al, b, bl)
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    assert [bytes(gb.numpy()[i, : gl[i]]).decode() for i in range(len(rows))] \
+        == [x + y for x, y in zip(rows, other)]
+    for cb, cl, tcb, tcl in (_enc(other), _enc(["ab"] * len(rows)),
+                             _enc(rows)):
+        got = PS.equals(ta, tal, tcb, tcl).numpy()
+        np.testing.assert_array_equal(got,
+                                      np.asarray(RS.equals(a, al, cb, cl)))
+
+
+def test_table_lookup_and_char_at_match_reference():
+    rows = _seeded_words(15)
+    b, l, tb, tl = _enc(rows)
+    table = (np.arange(256) % 7 == 0)
+    got = PS.table_lookup(table, tb.to(torch.int32)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        RS.table_lookup(table, b.astype(np.int32))))
+    for i in (0, 1, -1, 5):
+        idx = np.full(len(rows), i, dtype=np.int32)
+        g = PS.char_at(tb, tl, torch.from_numpy(idx))
+        r = RS.char_at(b, l, idx)
+        for x, y in zip(g, r):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+PARSE_EDGES = [" 42", "+7", "-0", "1_000", "", "N/A", "0210A", "02108",
+               "9223372036854775807", "-9223372036854775808",
+               "9223372036854775808", "12345678901234567890",
+               "-1234567890123456789", "١٢", "\xa012", "12 3", " - 5", "-",
+               "+", "  ", "\t7\n", "0" * 25 + "7", " " * 30 + "8" + " " * 5,
+               "00", "1_", "_1", "1e3", "3.0", "\x1c5"]
+
+
+@pytest.mark.parametrize("pad", [0, 40])
+def test_parse_i64_matches_reference_and_int(pad):
+    """Edges plus seeded numbers; `pad` widens the matrix past the parse
+    window so the narrowed path runs."""
+    rng = np.random.default_rng(16)
+    nums = [str(int(v)) for v in rng.integers(-10 ** 18, 10 ** 18, size=40)]
+    rows = PARSE_EDGES + nums + [" %d " % v for v in range(-5, 5)]
+    b, l, tb, tl = _enc(rows)
+    if pad:
+        b = np.pad(b, ((0, 0), (0, pad)))
+        tb = torch.from_numpy(b)
+    val, bad, route = PS.parse_i64(tb, tl)
+    wv, wbad, wroute = (np.asarray(x) for x in RS.parse_i64(b, l))
+    np.testing.assert_array_equal(bad.numpy(), wbad)
+    np.testing.assert_array_equal(route.numpy(), wroute)
+    ok = ~wbad & ~wroute
+    np.testing.assert_array_equal(val.numpy()[ok], wv[ok])
+    for i, s in enumerate(rows):
+        try:
+            want = int(s)
+        except ValueError:
+            want = None
+        if bad[i]:
+            assert want is None, s
+        elif route[i]:
+            # valid for CPython or not, the interpreter decides
+            assert want is None or not -2 ** 63 < want < 2 ** 63 \
+                or not s.isascii() or "_" in s or len(s.strip()) > 19, s
+        else:
+            assert want == int(val[i]), s
+
+
+@pytest.mark.parametrize("width,pad_zero", [(0, False), (5, True),
+                                            (1, True), (25, True)])
+def test_format_i64_matches_reference(width, pad_zero):
+    rng = np.random.default_rng(17)
+    vals = np.concatenate([
+        np.array([0, 7, -7, 42, -42, 99999, -99999, 100000, -3, 2 ** 63 - 1,
+                  -2 ** 63, -2 ** 63 + 1, 10 ** 18, -10 ** 18], np.int64),
+        rng.integers(-10 ** 12, 10 ** 12, size=30)])
+    gb, gl = PS.format_i64(torch.from_numpy(vals), width=width,
+                           pad_zero=pad_zero)
+    wb, wl = RS.format_i64(vals, width=width, pad_zero=pad_zero)
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
+    fmt = f"%0{width}d" if pad_zero else "%d"
+    assert [bytes(gb.numpy()[i, : gl[i]]).decode() for i in range(len(vals))] \
+        == [fmt % int(v) for v in vals]

@@ -48,6 +48,21 @@ class Context:
         return DataSet(self, L.ParallelizeOperator(data, schema,
                                                    sample_size=max_rows))
 
+    def csv(self, pattern: str, columns=None, header=None, delimiter=None,
+            quotechar: Optional[str] = None, null_values=None,
+            type_hints=None) -> "DataSet":
+        """Rows of CSV files (reference: context.py:147). The delimiter,
+        header, column names and normal-case column types are sniffed from
+        the first file's first 256KB unless given; cells decode to their
+        types on the device."""
+        from ..io.csvsource import make_csv_operator
+        from .dataset import DataSet
+
+        return DataSet(self, make_csv_operator(
+            self.options_store, pattern, columns=columns, header=header,
+            delimiter=delimiter, quotechar=quotechar, type_hints=type_hints,
+            null_values=null_values))
+
     def text(self, pattern: str, null_values=None) -> "DataSet":
         """One row per line; lines equal to a null value load as None."""
         from ..io.csvsource import make_text_operator

@@ -1,11 +1,12 @@
 """Public DataSet — lazy operator-graph builder (counterpart of
 `tuplex_tpu/api/dataset.py`; reference: python/tuplex/dataset.py — map:49,
-filter:83, collect:113, exception_counts:707). Every method returns a NEW
+filter:83, withColumn/mapColumn/selectColumns, collect:113,
+exception_counts:707). Every method returns a NEW
 DataSet over a new logical operator; nothing executes until collect()."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 from ..core import typesys as T
 from ..plan import logical as L
@@ -24,6 +25,20 @@ class DataSet:
 
     def filter(self, ftor: Callable) -> "DataSet":
         return DataSet(self._context, L.FilterOperator(self._op, ftor))
+
+    def withColumn(self, column: str, ftor: Callable) -> "DataSet":
+        return DataSet(self._context,
+                       L.WithColumnOperator(self._op, column, ftor))
+
+    def mapColumn(self, column: str, ftor: Callable) -> "DataSet":
+        return DataSet(self._context,
+                       L.MapColumnOperator(self._op, column, ftor))
+
+    def selectColumns(self, columns: Sequence) -> "DataSet":
+        if not isinstance(columns, (list, tuple)):
+            columns = [columns]
+        return DataSet(self._context,
+                       L.SelectColumnsOperator(self._op, columns))
 
     def collect(self) -> list:
         out = []

@@ -7,21 +7,32 @@ The UDF's AST is evaluated over CV column batches:
   * Python exceptions become error-code lattice updates: the first error per
     row wins (matching sequential interpreter semantics), and errored rows
     drop out of the active mask
+  * control flow is predicated: both arms of an `if` run under their masks
+    and assignments and returns merge per row (`merge_cv`); errors raise
+    only for rows on the arm that raised
   * constructs outside the supported subset raise NotCompilable — the stage
     then routes all rows through the interpreter
 
-Supported: lambdas and straight-line functions (assignments, returns);
-names, constants, + - * / // % and unary minus/not; comparisons; None and
-Option values; tuples and tuple indexing; `str.find`/`rfind`/`index`/
-`rindex` with a constant needle, string slicing and `len`; `re.search` /
+Supported: lambdas and functions with assignments, augmented assignments,
+if/elif/else, conditional expressions and returns anywhere; names,
+constants, + - * / // % and unary minus/not; `and`/`or` with Python's value
+and short-circuit semantics; chained comparisons (int against float
+exactly as Python compares them, str ==/!=, Option == None); `in` on
+strings and constant tuples; None and Option values; tuples, tuple and
+named-row indexing; string indexing and slicing, `len`, concatenation,
+`'%0Nd' % i`, `int()`; `str.find`/`rfind`/`index`/`rindex` with a constant
+needle, `lower`/`upper`, `replace` with constant arguments; `re.search` /
 `re.match` where the reference takes its NFA (boolean-only) path; filter
 truthiness. Torch runs eagerly, so there is no scan or fusion barrier here:
-each expression launches its ops as it is evaluated.
+each expression launches its ops as it is evaluated. Branch speculation
+(the reference's `branchprof`) is not ported: both arms always run.
 """
 
 from __future__ import annotations
 
 import ast
+import operator as _op
+import re
 from typing import Any, Callable, Optional
 
 import torch
@@ -62,8 +73,11 @@ class Emitter:
         self.ctx = ctx
         self.globals = globals_
 
-    def eval_udf(self, udf: UDFSource, args: list[CV]) -> CV:
-        """Evaluate a UDF body over columnar args; returns the result CV."""
+    def eval_udf(self, udf: UDFSource, args: list[CV],
+                 mask: Optional[torch.Tensor] = None) -> CV:
+        """Evaluate a UDF body over columnar args; returns the result CV.
+        `mask` restricts the rows the body runs for (an inlined helper runs
+        under its call site's mask)."""
         if udf.source == "":
             raise NotCompilable("no source available for UDF")
         tree = udf.tree
@@ -76,7 +90,7 @@ class Emitter:
             else:
                 raise NotCompilable(
                     f"UDF takes {len(params)} args, got {len(args)}")
-        frame = Frame(self, dict(zip(params, args)))
+        frame = Frame(self, dict(zip(params, args)), mask)
         if isinstance(tree, ast.Lambda):
             return frame.eval(tree.body)
         if not isinstance(tree, ast.FunctionDef):
@@ -84,27 +98,44 @@ class Emitter:
         frame.exec_block(tree.body)
         return frame.finalize_return()
 
-    def inline_call(self, func: Callable, args: list[CV]) -> CV:
+    def inline_call(self, func: Callable, args: list[CV],
+                    mask: torch.Tensor) -> CV:
         """Inline a user helper function referenced from UDF globals."""
         src = get_udf_source(func)
         if src.source == "":
             raise NotCompilable(f"no source for helper {src.name}")
-        return Emitter(self.ctx, {**src.globals}).eval_udf(src, args)
+        return Emitter(self.ctx, {**src.globals}).eval_udf(src, args, mask)
 
 
 class Frame:
-    """One UDF activation: variable env + return value."""
+    """One UDF activation: variable env, branch predicate and returns."""
 
-    def __init__(self, emitter: Emitter, env: dict[str, CV]):
+    def __init__(self, emitter: Emitter, env: dict[str, CV],
+                 mask: Optional[torch.Tensor] = None):
         self.em = emitter
         self.ctx = emitter.ctx
         self.env = env
+        self.mask = mask              # branch predicate [B] or None == all
+        self._body_mask = mask        # the mask the body started under
         self.ret_val: Optional[CV] = None
+        self.ret_mask: Optional[torch.Tensor] = None   # rows that returned
+        self.returned = False         # an unconditional return ran
+
+    def active(self) -> torch.Tensor:
+        """Rows this point of the body runs for: live, not yet returned,
+        on the current branch."""
+        a = self.ctx.active
+        if self.ret_mask is not None:
+            a = a & ~self.ret_mask
+        if self.mask is not None:
+            a = a & self.mask
+        return a
 
     def raise_where(self, cond: torch.Tensor, code: ExceptionCode) -> None:
-        """Rows where `cond` holds (and that are still live) raise `code`:
-        the first error per row wins and the row leaves the active mask."""
-        hit = self.ctx.active & cond & (self.ctx.err == 0)
+        """Rows where `cond` holds (and that are still live here) raise
+        `code`: the first error per row wins and the row leaves the active
+        mask."""
+        hit = self.active() & cond & (self.ctx.err == 0)
         self.ctx.err = torch.where(hit, self.ctx.coded(code), self.ctx.err)
         self.ctx.active = self.ctx.active & ~hit
 
@@ -115,21 +146,35 @@ class Frame:
     # statements
     # ===================================================================
     def exec_block(self, stmts: list[ast.stmt]) -> None:
-        """Straight-line code: statements after a `return` never run."""
+        """Statements after an unconditional `return` never run."""
         for s in stmts:
             m = getattr(self, "exec_" + type(s).__name__, None)
             if m is None:
                 raise NotCompilable(f"statement {type(s).__name__}")
             m(s)
-            if self.ret_val is not None:
+            if self.returned:
                 return
 
     def exec_Return(self, node: ast.Return) -> None:
-        self.ret_val = self.eval(node.value) if node.value is not None \
+        val = self.eval(node.value) if node.value is not None \
             else null_cv()
+        live = self.active()
+        self.ret_val = val if self.ret_val is None else \
+            merge_cv(self, live, val, self.ret_val)
+        self.ret_mask = live if self.ret_mask is None \
+            else self.ret_mask | live
+        if self.mask is self._body_mask:
+            self.returned = True
 
     def finalize_return(self) -> CV:
-        return null_cv() if self.ret_val is None else self.ret_val
+        if self.ret_val is None:
+            return null_cv()
+        if not self.returned:
+            # rows that fall off the end return None, outside the returned
+            # values' type: they resolve on the interpreter
+            self.raise_where(self.ctx.ones(),
+                             ExceptionCode.NORMALCASEVIOLATION)
+        return self.ret_val
 
     def exec_Assign(self, node: ast.Assign) -> None:
         val = self.eval(node.value)
@@ -139,6 +184,10 @@ class Frame:
 
     def _assign_target(self, tgt: ast.expr, val: CV) -> None:
         if isinstance(tgt, ast.Name):
+            old = self.env.get(tgt.id)
+            if self.mask is not None and old is not None:
+                # inside a branch: rows off the branch keep the old value
+                val = merge_cv(self, self.mask, val, old)
             self.env[tgt.id] = val
         elif isinstance(tgt, (ast.Tuple, ast.List)):
             if val.elts is None:
@@ -160,6 +209,20 @@ class Frame:
 
     def exec_Pass(self, node: ast.Pass) -> None:
         pass
+
+    def exec_Expr(self, node: ast.Expr) -> None:
+        self.eval(node.value)   # for its errors; the value is dropped
+
+    def exec_If(self, node: ast.If) -> None:
+        """Both arms run, each under its branch mask."""
+        cond = self.truthy(self.eval(node.test))
+        outer = self.mask
+        self.mask = cond if outer is None else outer & cond
+        self.exec_block(node.body)
+        if node.orelse:
+            self.mask = ~cond if outer is None else outer & ~cond
+            self.exec_block(node.orelse)
+        self.mask = outer
 
     # ===================================================================
     # expressions
@@ -208,14 +271,57 @@ class Frame:
         raise NotCompilable("unary op")
 
     def eval_Compare(self, node: ast.Compare) -> CV:
+        """Chained comparisons: a < b <= c is (a < b) & (b <= c), each
+        operand evaluated once."""
         left = self.eval(node.left)
         comps = [self.eval(c) for c in node.comparators]
+        if left.is_const and all(c.is_const for c in comps):
+            try:
+                vals = [left.const] + [c.const for c in comps]
+                return const_cv(all(
+                    _CONST_CMP[type(op)](a, b)
+                    for op, a, b in zip(node.ops, vals, vals[1:])))
+            except (KeyError, TypeError):
+                pass    # not foldable: the vectorized path decides
         acc = None
         for op, right in zip(node.ops, comps):
             res = self._compare(op, left, right)
             acc = res if acc is None else acc & res
             left = right
         return CV(t=T.BOOL, data=acc)
+
+    def eval_BoolOp(self, node: ast.BoolOp) -> CV:
+        """Python value semantics: the result is the first operand that
+        decides (falsy for `and`, truthy for `or`), else the last. Operand
+        i+1 only runs (and raises) for rows the earlier operands did not
+        decide."""
+        is_and = isinstance(node.op, ast.And)
+        outer = self.mask
+        vals = []
+        gate = outer
+        for operand in node.values:
+            self.mask = gate
+            v = self.eval(operand)
+            vals.append(v)
+            tr = self.truthy(v)
+            nxt = tr if is_and else ~tr
+            gate = nxt if gate is None else gate & nxt
+        self.mask = outer
+        result = vals[-1]
+        for v in reversed(vals[:-1]):
+            tr = self.truthy(v)
+            result = merge_cv(self, tr if is_and else ~tr, result, v)
+        return result
+
+    def eval_IfExp(self, node: ast.IfExp) -> CV:
+        cond = self.truthy(self.eval(node.test))
+        outer = self.mask
+        self.mask = cond if outer is None else outer & cond
+        a = self.eval(node.body)
+        self.mask = ~cond if outer is None else outer & ~cond
+        b = self.eval(node.orelse)
+        self.mask = outer
+        return merge_cv(self, cond, a, b)
 
     def eval_Subscript(self, node: ast.Subscript) -> CV:
         val = self.eval(node.value)
@@ -234,6 +340,13 @@ class Frame:
                     raise NotCompilable("tuple index out of range")
                 return val.elts[i]
             raise NotCompilable("dynamic tuple index")
+        if val.base is T.STR:
+            rb, rl = self._to_strpair(val)
+            self._ascii_guard(rb, rl)   # byte index == char index
+            i = self._as_i64(self._require_numeric(idx, "string index"))
+            ch, cl, oob = S.char_at(rb, rl, i.to(I32))
+            self.raise_where(oob, ExceptionCode.INDEXERROR)
+            return CV(t=T.STR, sbytes=ch, slen=cl)
         raise NotCompilable(f"subscript on {val.t}")
 
     def eval_Call(self, node: ast.Call) -> CV:
@@ -259,7 +372,7 @@ class Frame:
         if name in self.em.globals:
             g = self.em.globals[name]
             if callable(g):
-                return self.em.inline_call(g, args)
+                return self.em.inline_call(g, args, self.active())
             raise NotCompilable(f"call to non-callable global {name}")
         builtin = getattr(self, "_builtin_" + name, None)
         if builtin is not None:
@@ -368,6 +481,8 @@ class Frame:
         if a.is_const and b.is_const:
             try:
                 return const_cv(_const_binop(op, a.const, b.const))
+            except (TypeError, ValueError):
+                raise NotCompilable("constant operation raises") from None
             except ZeroDivisionError:
                 self.raise_where(self.ctx.ones(),
                                  ExceptionCode.ZERODIVISIONERROR)
@@ -375,7 +490,11 @@ class Frame:
         if a.base is T.STR or b.base is T.STR or \
                 (a.is_const and isinstance(a.const, str)) or \
                 (b.is_const and isinstance(b.const, str)):
-            raise NotCompilable("string operator")
+            if isinstance(op, ast.Add):
+                return self._str_concat(a, b)
+            if isinstance(op, ast.Mod):
+                return self._str_format(a, b)
+            raise NotCompilable(f"str operator {type(op).__name__}")
         a = self._require_numeric(a, "arithmetic")
         b = self._require_numeric(b, "arithmetic")
         out_t = T.super_type(a.base, b.base)
@@ -412,7 +531,7 @@ class Frame:
             b_is_none = b.t is T.NULL
             if a_is_none or b_is_none:
                 other = b if a_is_none else a
-                if a_is_none and b_is_none:
+                if other.t is T.NULL:
                     isn = self.ctx.ones()
                 elif other.valid is not None:
                     isn = ~other.valid
@@ -421,31 +540,60 @@ class Frame:
                 return isn if isinstance(op, (ast.Is, ast.Eq)) else ~isn
         if isinstance(op, (ast.Is, ast.IsNot)):
             raise NotCompilable("identity comparison")
-        a_str = a.base is T.STR or (a.is_const and isinstance(a.const, str))
-        b_str = b.base is T.STR or (b.is_const and isinstance(b.const, str))
+        if isinstance(op, (ast.In, ast.NotIn)):
+            res = self._contains(a, b)
+            return res if isinstance(op, ast.In) else ~res
+        eq_op = isinstance(op, (ast.Eq, ast.NotEq))
+        a_str, b_str = _is_str(a), _is_str(b)
         if a_str or b_str:
-            raise NotCompilable("string comparison")
-        if isinstance(op, (ast.Eq, ast.NotEq)) and \
-                (a.valid is not None or b.valid is not None):
-            # Option equality: values equal AND both present, or both None
+            if not eq_op:
+                raise NotCompilable("string ordering comparison")
+            if a_str and b_str:
+                # None == "x" is False, not an error: Option rows stay
+                raw = S.equals(*self._str_payload(a), *self._str_payload(b))
+            else:
+                raw = self.ctx.zeros()    # a str never equals a number
+            return self._option_eq(a, b, raw, op)
+        if eq_op and (a.valid is not None or b.valid is not None):
             an = self._require_numeric(
                 CV(t=a.base, data=a.data) if a.valid is not None else a,
                 "comparison")
             bn = self._require_numeric(
                 CV(t=b.base, data=b.data) if b.valid is not None else b,
                 "comparison")
-            av = a.valid if a.valid is not None else self.ctx.ones()
-            bv = b.valid if b.valid is not None else self.ctx.ones()
-            eq = (av & bv & (an.data == bn.data)) | (~av & ~bv)
-            return eq if isinstance(op, ast.Eq) else ~eq
-        ad = self._require_numeric(a, "comparison").data
-        bd = self._require_numeric(b, "comparison").data
-        table = {ast.Eq: torch.eq, ast.NotEq: torch.ne, ast.Lt: torch.lt,
-                 ast.LtE: torch.le, ast.Gt: torch.gt, ast.GtE: torch.ge}
-        fn = table.get(type(op))
-        if fn is None:
+            return self._option_eq(a, b, _num_cmp(ast.Eq, an, bn), op)
+        an = self._require_numeric(a, "comparison")
+        bn = self._require_numeric(b, "comparison")
+        if type(op) not in _CMP_FN:
             raise NotCompilable(f"comparison {type(op).__name__}")
-        return fn(ad, bd)
+        return _num_cmp(type(op), an, bn)
+
+    def _option_eq(self, a: CV, b: CV, raw_eq: torch.Tensor,
+                   op: ast.cmpop) -> torch.Tensor:
+        """Equality with None: values equal and both present, or both
+        None."""
+        av = self.ctx.ones() if a.valid is None else a.valid
+        bv = self.ctx.ones() if b.valid is None else b.valid
+        eq = (av & bv & raw_eq) | (~av & ~bv)
+        return eq if isinstance(op, ast.Eq) else ~eq
+
+    def _contains(self, needle: CV, hay: CV) -> torch.Tensor:
+        if _is_str(hay):
+            if needle.is_const and isinstance(needle.const, str):
+                return S.contains_const(*self._to_strpair(hay), needle.const)
+            raise NotCompilable("dynamic needle for `in`")
+        if hay.is_const and isinstance(hay.const, (tuple, list, set,
+                                                   frozenset)):
+            items = [const_cv(v) for v in hay.const]
+        elif hay.elts is not None and hay.names is None \
+                and hay.kind is None and hay.valid is None:
+            items = list(hay.elts)
+        else:
+            raise NotCompilable(f"`in` over {hay.t}")
+        acc = self.ctx.zeros()
+        for e in items:
+            acc = acc | self._compare(ast.Eq(), needle, e)
+        return acc
 
     # -- strings ------------------------------------------------------------
     def _slice(self, val: CV, sl: ast.Slice) -> CV:
@@ -482,6 +630,80 @@ class Frame:
         v = self._require_numeric(self.eval(node), "slice bound")
         return self._as_i64(v).to(I32)
 
+    def _str_payload(self, v: CV):
+        """(bytes, lens) of a str or Option[str] CV (constants broadcast)
+        without raising for None rows: callers gate on validity."""
+        if v.is_const:
+            if not isinstance(v.const, str):
+                raise NotCompilable("expected str")
+            return S.broadcast_const(v.const, self.ctx.b, self.ctx.device)
+        if v.base is not T.STR:
+            raise NotCompilable(f"expected str, got {v.t}")
+        return v.sbytes, v.slen
+
+    def _to_strpair(self, v: CV):
+        """(bytes, lens) of a str CV; None rows raise TypeError."""
+        v = self._unwrap_option(v, "string op")
+        if v.t is T.NULL:   # the error is flagged; a dummy keeps ops going
+            return S.broadcast_const("", self.ctx.b, self.ctx.device)
+        return self._str_payload(v)
+
+    def _str_concat(self, a: CV, b: CV) -> CV:
+        if a.is_const and b.is_const:
+            if not (isinstance(a.const, str) and isinstance(b.const, str)):
+                raise NotCompilable("str + non-str")
+            return const_cv(a.const + b.const)
+        rb, rl = S.concat(*self._to_strpair(a), *self._to_strpair(b))
+        return CV(t=T.STR, sbytes=rb, slen=rl)
+
+    def _str_format(self, fmt: CV, args: CV) -> CV:
+        """'...%0Nd...' % x with a constant format string: %d, %0Nd and %%
+        only; any other directive interprets."""
+        if not (fmt.is_const and isinstance(fmt.const, str)):
+            raise NotCompilable("dynamic format string")
+        if args.is_const:
+            try:
+                return const_cv(fmt.const % args.const)
+            except (TypeError, ValueError):
+                raise NotCompilable("constant format raises") from None
+        if args.elts is not None and args.names is None \
+                and args.kind is None and args.valid is None:
+            arg_list = list(args.elts)
+        else:
+            arg_list = [args]
+        out: Optional[CV] = None
+        ai = 0
+        for piece in re.split(r"(%%|%(?:0\d+)?d)", fmt.const):
+            if not piece:
+                continue
+            if piece == "%%":
+                part = const_cv("%")
+            elif piece.startswith("%"):
+                if ai >= len(arg_list):
+                    raise NotCompilable("format arity")
+                arg = self._unwrap_option(arg_list[ai], "%d")
+                ai += 1
+                if arg.t is T.NULL:
+                    vals = torch.zeros(self.ctx.b, dtype=I64,
+                                       device=self.ctx.device)
+                else:
+                    arg = self.materialize(arg)
+                    if arg.base not in (T.I64, T.BOOL):
+                        raise NotCompilable(f"%d of {arg.t}")
+                    vals = self._as_i64(arg)
+                width = int(piece[1:-1] or "0")
+                fb, fl = S.format_i64(vals, width=width,
+                                      pad_zero=width > 0)
+                part = CV(t=T.STR, sbytes=fb, slen=fl)
+            elif "%" in piece:
+                raise NotCompilable(f"format {piece!r}")
+            else:
+                part = const_cv(piece)
+            out = part if out is None else self._str_concat(out, part)
+        if ai != len(arg_list):
+            raise NotCompilable("surplus % format arguments")
+        return out if out is not None else const_cv("")
+
     def _str_method(self, recv: CV, name: str, args: list[CV]) -> CV:
         if recv.is_const and all(a.is_const for a in args):
             try:
@@ -489,12 +711,27 @@ class Frame:
                     *[a.const for a in args]))
             except Exception:
                 pass
-        if name not in ("find", "rfind", "index", "rindex"):
+        if name not in ("find", "rfind", "index", "rindex", "lower",
+                        "upper", "replace"):
             raise NotCompilable(f"str.{name}")
-        recv = self.materialize(self._unwrap_option(recv, f"str.{name}"))
-        if recv.t is T.NULL:
-            raise NotCompilable(f"str.{name} on None")
-        rb, rl = recv.sbytes, recv.slen
+        rb, rl = self._to_strpair(recv)
+        if name in ("lower", "upper"):
+            if args:
+                raise NotCompilable(f"str.{name} arguments")
+            # byte case maps cover ASCII only: 'é'.upper() must interpret
+            self._ascii_guard(rb, rl)
+            fb, fl = getattr(S, name)(rb, rl)
+            return CV(t=T.STR, sbytes=fb, slen=fl)
+        if name == "replace":
+            # byte matching of a UTF-8 needle equals code-point matching,
+            # so non-ASCII rows need no guard here
+            if len(args) != 2 or not all(
+                    a.is_const and isinstance(a.const, str) for a in args) \
+                    or not args[0].const:
+                raise NotCompilable("str.replace: needs two constant str "
+                                    "args, the first non-empty")
+            fb, fl = S.replace_const(rb, rl, args[0].const, args[1].const)
+            return CV(t=T.STR, sbytes=fb, slen=fl)
         self._ascii_guard(rb, rl)  # positions are byte offsets
         if not args or not (args[0].is_const and
                             isinstance(args[0].const, str)):
@@ -510,6 +747,36 @@ class Frame:
         if name in ("index", "rindex"):
             self.raise_where(pos < 0, ExceptionCode.VALUEERROR)
         return CV(t=T.I64, data=pos.to(I64))
+
+    def _builtin_int(self, args: list[CV]) -> CV:
+        if len(args) != 1:
+            raise NotCompilable("int() arity")
+        v = args[0]
+        if v.is_const:
+            try:
+                return const_cv(int(v.const))
+            except (ValueError, TypeError, OverflowError):
+                pass   # every row raises: the vectorized path says so
+        v = self._unwrap_option(v, "int()")
+        if v.t is T.NULL:
+            return CV(t=T.I64, data=torch.zeros(self.ctx.b, dtype=I64,
+                                                device=self.ctx.device))
+        v = self.materialize(v)
+        if v.base is T.STR:
+            val, bad, route = S.parse_i64(v.sbytes, v.slen)
+            self.raise_where(bad, ExceptionCode.VALUEERROR)
+            # a valid Python int this kernel does not evaluate
+            self.raise_where(route, ExceptionCode.NORMALCASEVIOLATION)
+            return CV(t=T.I64, data=val)
+        if v.base is T.F64:
+            t = torch.trunc(v.data)
+            # nan, inf and values beyond int64 raise or grow in Python
+            ok = (t >= -2.0 ** 63) & (t < 2.0 ** 63)
+            self.raise_where(~ok, ExceptionCode.NORMALCASEVIOLATION)
+            return CV(t=T.I64, data=torch.where(ok, t, 0.0).to(I64))
+        if v.base in (T.I64, T.BOOL):
+            return CV(t=T.I64, data=self._as_i64(v))
+        raise NotCompilable(f"int() of {v.t}")
 
     def _builtin_len(self, args: list[CV]) -> CV:
         if len(args) != 1:
@@ -535,9 +802,121 @@ class Frame:
 _START_MAX_POS = 32   # the reference's NFARegex._START_MAX_POS
 
 
-def _const_binop(op: ast.operator, a, b):
-    import operator as _op
+def _is_str(v: CV) -> bool:
+    return v.base is T.STR or (v.is_const and isinstance(v.const, str))
 
+
+_CONST_CMP = {ast.Eq: _op.eq, ast.NotEq: _op.ne, ast.Lt: _op.lt,
+              ast.LtE: _op.le, ast.Gt: _op.gt, ast.GtE: _op.ge,
+              ast.Is: _op.is_, ast.IsNot: _op.is_not,
+              ast.In: lambda a, b: a in b,
+              ast.NotIn: lambda a, b: a not in b}
+_CMP_FN = {ast.Eq: torch.eq, ast.NotEq: torch.ne, ast.Lt: torch.lt,
+           ast.LtE: torch.le, ast.Gt: torch.gt, ast.GtE: torch.ge}
+_FLIP = {ast.Eq: ast.Eq, ast.NotEq: ast.NotEq, ast.Lt: ast.Gt,
+         ast.LtE: ast.GtE, ast.Gt: ast.Lt, ast.GtE: ast.LtE}
+_TWO63 = 2.0 ** 63
+_BELOW_TWO63 = 9223372036854774784.0   # the largest double below 2**63
+
+
+def _num_cmp(op: type, a: CV, b: CV) -> torch.Tensor:
+    """a <op> b for materialized numeric CVs, exact as Python compares:
+    bools as ints, and an int against a float without rounding the int."""
+    a_f, b_f = a.base is T.F64, b.base is T.F64
+    ad = a.data.to(I64) if a.base is T.BOOL else a.data
+    bd = b.data.to(I64) if b.base is T.BOOL else b.data
+    if a_f == b_f:
+        return _CMP_FN[op](ad, bd)
+    if a_f:
+        return _int_float_cmp(_FLIP[op], bd, ad)
+    return _int_float_cmp(op, ad, bd)
+
+
+def _int_float_cmp(op: type, x: torch.Tensor, f: torch.Tensor):
+    """int64 x <op> float64 f exactly: x < f iff x < ceil(f), x <= f iff
+    x <= floor(f) (and so on) for finite f inside int64's range; f beyond
+    the range orders against every x, and nan compares unequal."""
+    hi = f >= _TWO63
+    lo = f < -_TWO63
+    nan = torch.isnan(f)
+    fc = torch.clamp(torch.where(nan, 0.0, f), -_TWO63, _BELOW_TWO63)
+    fl, ce = torch.floor(fc), torch.ceil(fc)
+    if op in (ast.Eq, ast.NotEq):
+        eq = ~hi & ~lo & ~nan & (fl == fc) & (x == fl.to(I64))
+        return eq if op is ast.Eq else ~eq
+    if op is ast.Lt:
+        res, above = x < ce.to(I64), True
+    elif op is ast.LtE:
+        res, above = x <= fl.to(I64), True
+    elif op is ast.Gt:
+        res, above = x > fl.to(I64), False
+    else:
+        res, above = x >= ce.to(I64), False
+    res = torch.where(hi, above, torch.where(lo, not above, res))
+    return res & ~nan
+
+
+def _pad_width(a: torch.Tensor, w: int) -> torch.Tensor:
+    return a if a.shape[1] >= w else \
+        torch.nn.functional.pad(a, (0, w - a.shape[1]))
+
+
+def merge_cv(frame: Frame, mask: torch.Tensor, a: CV, b: CV) -> CV:
+    """where(mask, a, b) over CVs, unifying their types: the phi node of
+    predicated control flow."""
+    n = frame.ctx.b
+    if a.is_const and b.is_const and type(a.const) is type(b.const) \
+            and a.const == b.const:
+        return a
+    if a.t is T.NULL and b.t is T.NULL:
+        return null_cv()
+    if a.t is T.NULL or b.t is T.NULL:
+        # a None arm: Option of the other side, valid where it is chosen
+        other = frame.materialize(b if a.t is T.NULL else a)
+        sel = ~mask if a.t is T.NULL else mask
+        valid = sel if other.valid is None else sel & other.valid
+        return CV(t=T.option(other.base), data=other.data, valid=valid,
+                  sbytes=other.sbytes, slen=other.slen, elts=other.elts,
+                  names=other.names)
+    am, bm = frame.materialize(a), frame.materialize(b)
+    if am.elts is not None and bm.elts is not None:
+        if len(am.elts) != len(bm.elts) or am.kind != bm.kind:
+            raise NotCompilable("merging tuples of different shapes")
+        elts = [merge_cv(frame, mask, x, y)
+                for x, y in zip(am.elts, bm.elts)]
+        return tuple_cv(elts, names=am.names or bm.names,
+                        valid=_merge_valid(mask, am, bm, n), kind=am.kind)
+    if am.kind is not None or bm.kind is not None:
+        raise NotCompilable("merging special objects")
+    at, bt = am.base, bm.base
+    if at is T.STR and bt is T.STR:
+        w = max(am.sbytes.shape[1], bm.sbytes.shape[1])
+        sb = torch.where(mask[:, None], _pad_width(am.sbytes, w),
+                         _pad_width(bm.sbytes, w))
+        valid = _merge_valid(mask, am, bm, n)
+        return CV(t=T.option(T.STR) if valid is not None else T.STR,
+                  sbytes=sb, slen=torch.where(mask, am.slen, bm.slen),
+                  valid=valid)
+    if at in (T.BOOL, T.I64, T.F64) and bt in (T.BOOL, T.I64, T.F64):
+        out_t = T.super_type(at, bt)
+        dt = dtype_for(out_t)
+        data = torch.where(mask, am.data.to(dt), bm.data.to(dt))
+        valid = _merge_valid(mask, am, bm, n)
+        return CV(t=T.option(out_t) if valid is not None else out_t,
+                  data=data, valid=valid)
+    raise NotCompilable(f"cannot merge {a.t} and {b.t}")
+
+
+def _merge_valid(mask: torch.Tensor, am: CV, bm: CV, n: int):
+    if am.valid is None and bm.valid is None:
+        return None
+    ones = torch.ones(n, dtype=torch.bool, device=mask.device)
+    av = ones if am.valid is None else am.valid
+    bv = ones if bm.valid is None else bm.valid
+    return torch.where(mask, av, bv)
+
+
+def _const_binop(op: ast.operator, a, b):
     table = {
         ast.Add: _op.add, ast.Sub: _op.sub, ast.Mult: _op.mul,
         ast.Div: _op.truediv, ast.FloorDiv: _op.floordiv, ast.Mod: _op.mod,

@@ -1,9 +1,28 @@
-"""Text file source (counterpart of `tuplex_tpu/io/csvsource.py`, its
-`TextSourceOperator`: one row per line). CSV comes in a later slice."""
+"""Text and CSV file sources (counterpart of `tuplex_tpu/io/csvsource.py`).
+
+CSV follows the reference's split of the work (reference:
+utils/src/CSVStatistic.cc sniffing; physical/CSVParseRowGenerator.cc parsing
+fused into the pipeline):
+
+  * sniffing: Python-side over a 256KB sample (delimiter candidates scored
+    by per-line count consistency, header detected by type mismatch,
+    per-column normal-case type at tuplex.normalcaseThreshold)
+  * bulk read: every column a byte matrix built straight from the file's
+    bytes with numpy, no Python string per cell (the reference package uses
+    pyarrow.csv here; this package does not need pyarrow)
+  * typed decoding runs on the device inside the fused stage
+    (DecodeOperator); cells that fail to parse re-run on the interpreter
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import csv as _pycsv
+import io as _io
+import math
+from collections import Counter
+from typing import Any, Optional, Sequence
+
+import numpy as np
 
 from ..core import typesys as T
 from ..core.errors import TuplexException
@@ -68,3 +87,382 @@ def make_text_operator(options, pattern: str, null_values=None):
         raise TuplexException(f"no files match {pattern!r}")
     return TextSourceOperator(options, pattern, files,
                               null_values=null_values)
+
+
+# ---------------------------------------------------------------------------
+# sniffing (CSVStatistic semantics, as in the reference package)
+# ---------------------------------------------------------------------------
+
+DEFAULT_NULL_VALUES = ("",)
+_DELIM_CANDIDATES = (",", ";", "|", "\t")
+
+
+def sniff_delimiter(sample_text: str) -> str:
+    lines = [ln for ln in sample_text.splitlines() if ln.strip()][:64]
+    best, best_score = ",", -1.0
+    for d in _DELIM_CANDIDATES:
+        counts = []
+        for ln in lines:
+            try:
+                counts.append(len(next(_pycsv.reader([ln], delimiter=d))))
+            except Exception:
+                counts.append(1)
+        if not counts:
+            continue
+        mode, freq = Counter(counts).most_common(1)[0]
+        score = 0.0 if mode <= 1 else freq / len(counts) * mode
+        if score > best_score:
+            best, best_score = d, score
+    return best
+
+
+def _cell_type(cell: str, null_values: Sequence[str]) -> T.Type:
+    if cell in null_values:
+        return T.NULL
+    try:
+        int(cell)
+        return T.I64
+    except ValueError:
+        pass
+    try:
+        float(cell)
+        return T.F64
+    except ValueError:
+        pass
+    if cell.lower() in ("true", "false"):
+        return T.BOOL
+    return T.STR
+
+
+def detect_header(rows: list[list[str]], null_values: Sequence[str]) -> bool:
+    """The first row is a header iff all its cells are non-numeric strings
+    AND some body column has a different type (reference: CSVStatistic
+    header heuristic)."""
+    if len(rows) < 2:
+        return False
+    head = rows[0]
+    if any(_cell_type(c, ()) is not T.STR or c == "" for c in head):
+        return False
+    k = len(head)
+    body_types = []
+    for ci in range(k):
+        col = [r[ci] for r in rows[1:] if len(r) == k]
+        body_types.append({_cell_type(c, null_values) for c in col}
+                          - {T.NULL})
+    if any(ts and T.STR not in ts for ts in body_types):
+        return True
+    # all-string file: header iff the first row's values never reappear
+    flat = {c for r in rows[1:] for c in r}
+    return not any(h in flat for h in head)
+
+
+def infer_column_types(rows: list[list[str]], k: int,
+                       null_values: Sequence[str],
+                       threshold: float) -> list[T.Type]:
+    """The normal-case type per column: the majority type over the sample
+    at the threshold."""
+    types = []
+    for ci in range(k):
+        vals: list[Any] = []
+        for c in (r[ci] for r in rows if len(r) == k):
+            ct = _cell_type(c, null_values)
+            if ct is T.NULL:
+                vals.append(None)
+            elif ct is T.I64:
+                vals.append(int(c))
+            elif ct is T.F64:
+                vals.append(float(c))
+            elif ct is T.BOOL:
+                vals.append(c.lower() == "true")
+            else:
+                vals.append(c)
+        nc = T.normal_case_type(vals, threshold)[0]
+        types.append(T.STR if nc in (T.UNKNOWN, T.PYOBJECT) else nc)
+    return types
+
+
+class CSVStatistic:
+    """Sniffing result over a file sample."""
+
+    def __init__(self, sample_bytes: bytes, options,
+                 delimiter: Optional[str] = None,
+                 header: Optional[bool] = None,
+                 null_values: Optional[Sequence[str]] = None,
+                 columns: Optional[Sequence[str]] = None,
+                 type_hints: Optional[dict] = None,
+                 quotechar: str = '"'):
+        text = sample_bytes.decode("utf-8", errors="replace")
+        # drop a possibly truncated last line
+        if not sample_bytes.endswith(b"\n") and "\n" in text:
+            text = text[: text.rfind("\n")]
+        self.null_values = tuple(null_values) if null_values is not None \
+            else DEFAULT_NULL_VALUES
+        self.delimiter = delimiter or sniff_delimiter(text)
+        self.quotechar = quotechar or '"'
+        rows = [r for r in _pycsv.reader(_io.StringIO(text),
+                                         delimiter=self.delimiter,
+                                         quotechar=self.quotechar) if r]
+        if not rows:
+            raise TuplexException("empty CSV sample")
+        self.has_header = detect_header(rows, self.null_values) \
+            if header is None else header
+        body = rows[1:] if self.has_header else rows
+        k = Counter(len(r) for r in body).most_common(1)[0][0] if body \
+            else len(rows[0])
+        self.num_columns = k
+        if columns:
+            self.columns = list(columns)
+        elif self.has_header:
+            self.columns = [c if c else f"_{i}"
+                            for i, c in enumerate(rows[0])]
+        else:
+            self.columns = [f"_{i}" for i in range(k)]
+        threshold = options.get_float("tuplex.normalcaseThreshold", 0.9)
+        max_rows = options.get_int("tuplex.csv.maxDetectionRows", 1000)
+        self.types = infer_column_types(body[:max_rows], k,
+                                        self.null_values, threshold)
+        for key, t in (type_hints or {}).items():
+            idx = key if isinstance(key, int) else self.columns.index(key)
+            self.types[idx] = t
+        self.sample_rows = body[:max_rows]
+
+
+# ---------------------------------------------------------------------------
+# the CSV source
+# ---------------------------------------------------------------------------
+
+class CSVSourceOperator(L.LogicalOperator):
+    """Raw-cell CSV source: every column is Option[str] (a missing cell of
+    a malformed record is None). The typed decode is the DecodeOperator
+    above it, fused into the stage."""
+
+    def __init__(self, options, pattern: str, stat: CSVStatistic,
+                 files: list[str]):
+        super().__init__([])
+        self.options = options
+        self.pattern = pattern
+        self.stat = stat
+        self.files = files
+        self._raw_schema = T.row_of(
+            stat.columns, [T.option(T.STR)] * stat.num_columns)
+
+    def schema(self) -> T.RowType:
+        return self._raw_schema
+
+    def sample(self) -> list[Row]:
+        k = self.stat.num_columns
+        return [Row(list(r[:k]) + [None] * max(0, k - len(r)),
+                    self.stat.columns) for r in self.stat.sample_rows]
+
+    def load_partitions(self) -> list[C.Partition]:
+        parts: list[C.Partition] = []
+        offset = 0
+        for path in self.files:
+            with VirtualFileSystem.open_read(path, "rb") as fp:
+                data = fp.read()
+            for p in csv_partitions(data, self.stat, self.options, offset):
+                parts.append(p)
+                offset += p.num_rows
+        return parts
+
+
+def make_csv_operator(options, pattern: str, columns=None, header=None,
+                      delimiter=None, type_hints=None, null_values=None,
+                      quotechar: Optional[str] = None):
+    files = VirtualFileSystem.glob_input(pattern)
+    if not files:
+        raise TuplexException(f"no files match {pattern!r}")
+    max_sample = options.get_size("tuplex.csv.maxDetectionMemory", 256 << 10)
+    with VirtualFileSystem.open_read(files[0], "rb") as fp:
+        sample = fp.read(max_sample)
+    stat = CSVStatistic(sample, options, delimiter=delimiter, header=header,
+                        null_values=null_values, columns=columns,
+                        type_hints=type_hints, quotechar=quotechar or '"')
+    src = CSVSourceOperator(options, pattern, stat, files)
+    return L.DecodeOperator(src, _decoded_schema(stat), stat.null_values)
+
+
+def _decoded_schema(stat: CSVStatistic) -> T.RowType:
+    return T.row_of(stat.columns, stat.types)
+
+
+# ---------------------------------------------------------------------------
+# the splitter: file bytes -> per-column byte matrices
+# ---------------------------------------------------------------------------
+
+def csv_partitions(data: bytes, stat: CSVStatistic, options,
+                   base_index: int = 0):
+    """Partitions of raw cells over one file's bytes, in file order.
+
+    Records whose quotes are all whole-field quoting ("a,b" as one field)
+    split with numpy alone: quote parity from a running count of quote
+    bytes, then the delimiters and newlines outside quotes, then each
+    field's start and length, then one byte matrix per column. Records the
+    splitter does not take (a quote inside a field, a doubled "" escape, a
+    newline inside quotes, a wrong field count, a cell wider than
+    tuplex.tpu.maxStrBytes) are read by Python's csv module and keep their
+    slot as boxed rows for the interpreter, as the reference package's
+    malformed rows do."""
+    k = stat.num_columns
+    max_w = options.get_int("tuplex.tpu.maxStrBytes", 4096)
+    if not data:
+        return
+    starts, ends, good, fstart, flen = _split_records(
+        data, ord(stat.delimiter), ord(stat.quotechar), k, stat.has_header)
+    if good.any():
+        fast_rows = np.nonzero(good)[0]
+        too_wide = (flen > max_w).any(axis=1)
+        good[fast_rows[too_wide]] = False
+        fstart, flen = fstart[~too_wide], flen[~too_wide]
+    # the boxed rows: every record the splitter did not take, re-read by
+    # Python's csv module from its own bytes
+    boxed = []
+    for r in np.nonzero(~good)[0].tolist():
+        text = data[starts[r]: ends[r]].decode("utf-8", errors="replace")
+        try:
+            records = list(_pycsv.reader(_io.StringIO(text),
+                                         delimiter=stat.delimiter,
+                                         quotechar=stat.quotechar))
+        except _pycsv.Error:
+            records = [[text]]
+        for cells in records:
+            if cells:
+                boxed.append((r, tuple(cells[i] if i < len(cells) else None
+                                       for i in range(k))))
+    # output slots: fast records and boxed rows interleaved in file order
+    n_fast = len(fstart)
+    slot_rec = np.concatenate([np.nonzero(good)[0],
+                               np.asarray([r for r, _ in boxed], np.int64)])
+    order = np.argsort(slot_rec, kind="stable")   # boxed rows of one record
+    total = len(order)                            # keep their csv order
+    slot_of = np.empty(total, dtype=np.int64)
+    slot_of[order] = np.arange(total)
+    fast_slot = slot_of[:n_fast]
+    boxed_slot = slot_of[n_fast:]
+    schema = T.row_of(stat.columns, [T.option(T.STR)] * k)
+    # room for a full-width window at the last field
+    padded = np.concatenate([np.frombuffer(data, np.uint8),
+                             np.zeros(max(int(flen.max(initial=0)), 1),
+                                      np.uint8)])
+    bytes_per_row = max(16, 2 * len(data) // max(total, 1))
+    rows_pp = max(256, options.get_size("tuplex.partitionSize", 32 << 20)
+                  // bytes_per_row)
+    start = 0
+    for m in _chunk_sizes(total, rows_pp):
+        f0, f1 = np.searchsorted(fast_slot, [start, start + m])
+        pos = fast_slot[f0:f1] - start
+        leaves = {}
+        for ci in range(k):
+            leaves[str(ci)] = _column_leaf(padded, fstart[f0:f1, ci],
+                                           flen[f0:f1, ci], pos, m)
+        part = C.Partition(schema=schema, num_rows=m, leaves=leaves,
+                           start_index=base_index + start)
+        b0, b1 = np.searchsorted(boxed_slot, [start, start + m])
+        if b1 > b0:
+            mask = np.ones(m, dtype=np.bool_)
+            for j in range(b0, b1):
+                mask[boxed_slot[j] - start] = False
+                part.fallback[int(boxed_slot[j] - start)] = boxed[j][1]
+            part.normal_mask = mask
+        yield part
+        start += m
+
+
+def _split_records(data: bytes, delim: int, quote: int, k: int,
+                   has_header: bool):
+    """(record starts, record ends, fast-path flag per record, field starts
+    [F, k], field lengths [F, k] of the F fast records). Blank lines are no
+    records, and the header is dropped.
+
+    One pass over the bytes finds the structural candidates (delimiter,
+    quote, newline, CR); the rest are running counts over their positions:
+    a byte lies inside quotes when an odd number of quotes comes before it,
+    and a record's number is the count of newlines outside quotes before
+    it."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    table = bytearray(256)
+    for c in (delim, quote, 10, 13):
+        table[c] = 1
+    pos = np.flatnonzero(np.frombuffer(data.translate(table), np.bool_))
+    kind = buf[pos]
+    isq = kind == quote
+    # quotes up to and including each position, mod 2; the positions it is
+    # read at are no quotes, so this counts the quotes before them
+    inside = (np.cumsum(isq, dtype=np.uint8) & 1).view(np.bool_)
+    is_nl = kind == 10
+    nl_out = is_nl & ~inside
+    raw_rec = np.cumsum(nl_out, dtype=np.int32) - nl_out   # line number
+    ends = pos[nl_out]
+    if not len(ends) or ends[-1] != len(buf) - 1:
+        ends = np.append(ends, len(buf))
+    starts = np.concatenate([[0], ends[:-1] + 1])
+    # a CR before the record's newline belongs to the line terminator
+    term_cr = (ends > starts) & (buf[np.maximum(ends - 1, 0)] == 13)
+    ends = ends - term_cr
+    keep = ends > starts
+    if has_header and keep.any():
+        keep[np.argmax(keep)] = False
+    # line number -> record number, -1 for blank lines and the header
+    rec_of_line = np.where(keep, np.cumsum(keep) - 1, -1).astype(np.int32)
+    starts, ends = starts[keep], ends[keep]
+    nrec = len(starts)
+    if nrec == 0:
+        empty = np.zeros((0, k), np.int64)
+        return starts, ends, np.zeros(0, np.bool_), empty, empty
+    rec = rec_of_line[raw_rec]
+    # terminators belong to no record
+    rec[nl_out] = -1
+    cr = np.flatnonzero(kind == 13)
+    cr = cr[rec[cr] >= 0]
+    rec[cr[pos[cr] == ends[rec[cr]]]] = -1
+
+    def per_record(mask):
+        return np.bincount(rec[mask & (rec >= 0)], minlength=nrec)
+
+    is_delim = (kind == delim) & ~inside
+    good = per_record(is_delim) == k - 1
+    # a newline inside quotes, or a CR that ends no line, sends the record
+    # to Python's csv
+    good &= per_record(is_nl | (kind == 13)) == 0
+    d = pos[is_delim & (rec >= 0) & good[np.maximum(rec, 0)]
+            ].reshape(int(good.sum()), k - 1)
+    fstart = np.concatenate([starts[good][:, None], d + 1], axis=1)
+    fend = np.concatenate([d, ends[good][:, None]], axis=1)
+    flen = fend - fstart
+    # whole-field quoting: strip the two quotes; every quote byte of the
+    # record must be one of them, else the record goes to csv
+    quoted = (flen >= 2) & (buf[np.minimum(fstart, len(buf) - 1)] == quote) \
+        & (buf[np.maximum(fend - 1, 0)] == quote)
+    whole = per_record(isq)[good] == 2 * quoted.sum(axis=1)
+    good[np.flatnonzero(good)[~whole]] = False
+    return (starts, ends, good, (fstart + quoted)[whole],
+            (flen - 2 * quoted)[whole])
+
+
+def _column_leaf(padded: np.ndarray, fstart: np.ndarray, flen: np.ndarray,
+                 pos: np.ndarray, m: int) -> C.StrLeaf:
+    """One column's [m, W] byte matrix: the fields' bytes at rows `pos`
+    (ascending), zero elsewhere and past each field's length."""
+    w = max(int(flen.max(initial=0)), 1)
+    rows = np.lib.stride_tricks.sliding_window_view(padded, w)[fstart]
+    rows *= np.arange(w, dtype=np.int32)[None, :] < flen[:, None]
+    lens = flen.astype(np.int32)
+    if len(pos) == m:           # no boxed rows here: rows are in order
+        return C.StrLeaf(rows, lens)
+    mat = np.zeros((m, w), dtype=np.uint8)
+    full = np.zeros(m, dtype=np.int32)
+    mat[pos] = rows
+    full[pos] = lens
+    return C.StrLeaf(mat, full)
+
+
+def _chunk_sizes(total: int, cap: int) -> list[int]:
+    """Balanced partition sizes: a small tail is absorbed (within +25% of
+    the cap), else equal chunks."""
+    if total <= 0:
+        return []
+    if total <= cap + cap // 4:
+        return [total]
+    n = math.ceil(total / cap)
+    base, rem = divmod(total, n)
+    return [base + (1 if i < rem else 0) for i in range(n)]

@@ -1,14 +1,19 @@
 """String kernels over fixed-width byte matrices (counterpart of
-`tuplex_tpu/ops/strings.py`, the subset this package's emitter uses).
+`tuplex_tpu/ops/strings.py`, the subset this package's emitter and CSV
+decode use).
 
 Representation: a batch of N strings is (bytes: uint8 [N, W] zero-padded,
 lens: int32 [N]) on one device. Constant needles are Python values baked
 into the op sequence. Kernels never raise: they return sentinels (-1 for
 "not found") that the emitter turns into error-lattice updates.
 
-Byte gathers use `torch.gather`. The reference package rewrites them as
-one-hot bf16 contractions on accelerators (its `_mxu_gather`); that form
-exists for the TPU's matrix unit and costs W times the work on a GPU.
+Byte gathers use `torch.gather`, scatters `Tensor.scatter_` and table
+lookups plain indexing. The reference package rewrites them as one-hot bf16
+contractions on accelerators (its `_mxu_gather`); that form exists for the
+TPU's matrix unit and costs W times the work on a GPU.
+
+Every kernel stays in int64/int32/uint8: torch's CPU uint64 lacks shifts and
+some arithmetic, and the CPU path must equal the CUDA one.
 """
 
 from __future__ import annotations
@@ -17,20 +22,34 @@ import numpy as np
 import torch
 
 from ..runtime.torchcfg import I32, U8
+from ..utils.lru import LruDict
 
 
 def const_bytes(s: str) -> np.ndarray:
     return np.frombuffer(s.encode("utf-8"), dtype=np.uint8)
 
 
+# constant tables and UDF string constants already on a device: a stage
+# uses them once per partition, and each copy to the card is a
+# synchronous host-to-device transfer
+_DEVICE_CONSTS = LruDict(4096)
+
+
+def _on(device, name: str, arr: np.ndarray) -> torch.Tensor:
+    """A constant table on `device`, copied there once. Callers never
+    write to it."""
+    key = (name, str(device))
+    if key not in _DEVICE_CONSTS:
+        _DEVICE_CONSTS[key] = torch.from_numpy(arr).to(device)
+    return _DEVICE_CONSTS[key]
+
+
 def broadcast_const(s: str, n: int, device):
     """Materialize a python str constant as an [n, W] batch."""
     b = const_bytes(s)
-    w = max(len(b), 1)
-    row = torch.zeros((1, w), dtype=U8, device=device)
-    if len(b):
-        row[0, : len(b)] = torch.from_numpy(b.copy()).to(device)
-    return (row.expand(n, w),
+    row = np.zeros((1, max(len(b), 1)), dtype=np.uint8)
+    row[0, : len(b)] = b
+    return (_on(device, "str:" + s, row).expand(n, row.shape[1]),
             torch.full((n,), len(b), dtype=I32, device=device))
 
 
@@ -115,3 +134,296 @@ def non_ascii_rows(bytes_, lens):
     interpreter path."""
     inside = _pos_mask(bytes_.shape[1], lens)
     return (inside & (bytes_ >= 128)).any(dim=1)
+
+
+def table_lookup(table, idx):
+    """table[idx] for a small (<= 256-entry) lookup table and integer
+    indices of any shape: the byte-classification primitive."""
+    table = torch.as_tensor(table, device=idx.device)
+    return table[idx.to(torch.int64)]
+
+
+def contains_const(bytes_, lens, needle: str):
+    return find_const(bytes_, lens, needle) >= 0
+
+
+def char_at(bytes_, lens, idx):
+    """s[i] -> (bytes [N, 1], lens [N] = 1, out-of-range [N] bool)."""
+    n, w = bytes_.shape
+    nidx = torch.where(idx < 0, idx + lens, idx)
+    oob = (nidx < 0) | (nidx >= lens)
+    ch = take_cols(bytes_, torch.clamp(nidx, 0, w - 1)[:, None])
+    return ch.to(U8), torch.ones(n, dtype=I32, device=bytes_.device), oob
+
+
+# ---------------------------------------------------------------------------
+# case / replace / concat
+# ---------------------------------------------------------------------------
+
+def lower(bytes_, lens):
+    is_up = (bytes_ >= 65) & (bytes_ <= 90)
+    return torch.where(is_up, bytes_ + 32, bytes_).to(U8), lens
+
+
+def upper(bytes_, lens):
+    is_lo = (bytes_ >= 97) & (bytes_ <= 122)
+    return torch.where(is_lo, bytes_ - 32, bytes_).to(U8), lens
+
+
+def _shift_right(mask, j: int):
+    """mask moved j columns to the right (zeros shifted in)."""
+    if j == 0:
+        return mask
+    return torch.nn.functional.pad(mask[:, : mask.shape[1] - j], (j, 0))
+
+
+def _has_border(nb: np.ndarray) -> bool:
+    """Whether some proper prefix of the needle is also its suffix: only
+    then can two matches overlap."""
+    m = len(nb)
+    return any(np.array_equal(nb[:k], nb[m - k:]) for k in range(1, m))
+
+
+def replace_const(bytes_, lens, old: str, new: str):
+    """str.replace with constant old/new (Python's greedy left-to-right,
+    non-overlapping matches). Same-length replacement rewrites in place,
+    deletion compacts the kept bytes, anything else grows the width by the
+    worst-case expansion factor."""
+    ob, nbytes = const_bytes(old), const_bytes(new)
+    m, k = len(ob), len(nbytes)
+    n, w = bytes_.shape
+    dev = bytes_.device
+    if m == 0:
+        raise NotImplementedError("replace with empty pattern")
+    npos = w - m + 1
+    if npos <= 0:
+        return bytes_, lens
+    match = bytes_[:, 0:npos] == int(ob[0])
+    for j in range(1, m):
+        match = match & (bytes_[:, j: j + npos] == int(ob[j]))
+    pos = torch.arange(npos, dtype=I32, device=dev)[None, :]
+    match = match & (pos + m <= lens[:, None])
+    if m > 1 and _has_border(ob):
+        # overlapping candidates: keep a match only if no kept match starts
+        # in the m-1 columns before it (the sequential greedy scan)
+        next_ok = torch.zeros(n, dtype=I32, device=dev)
+        cols = []
+        for c in range(npos):
+            real = match[:, c] & (next_ok <= 0)
+            next_ok = torch.where(real, m - 1, next_ok - 1)
+            cols.append(real)
+        match = torch.stack(cols, dim=1)
+    is_start = torch.nn.functional.pad(match, (0, w - npos))   # [n, w]
+    if k == m:
+        out = bytes_
+        for j in range(k):
+            out = torch.where(_shift_right(is_start, j), int(nbytes[j]), out)
+        return out.to(U8), lens
+    consumed = is_start
+    for j in range(1, m):
+        consumed = consumed | _shift_right(is_start, j)
+    inside = _pos_mask(w, lens)
+    copied = inside & ~consumed
+    if k == 0:
+        # deletion: stable compaction of the kept bytes
+        tgt = torch.where(copied, torch.cumsum(copied, dim=1) - 1, w)
+        out = _scatter_cols(torch.zeros((n, w), dtype=U8, device=dev), tgt,
+                            bytes_, w)
+        return out, copied.sum(dim=1).to(I32)
+    starts = is_start & inside
+    contrib = torch.where(starts, k, copied.to(torch.int64))
+    out_start = torch.cumsum(contrib, dim=1) - contrib   # exclusive prefix
+    out_len = contrib.sum(dim=1).to(I32)
+    grow = max(1, -(-k // m))
+    wout = w * grow if k > m else w
+    out = torch.zeros((n, wout), dtype=U8, device=dev)
+    out = _scatter_cols(out, torch.where(copied, out_start, wout), bytes_,
+                        wout)
+    for j in range(k):
+        src = torch.full((n, w), int(nbytes[j]), dtype=U8, device=dev)
+        out = _scatter_cols(out, torch.where(starts, out_start + j, wout),
+                            src, wout)
+    return out, out_len
+
+
+def _scatter_cols(out, tgt, src, wout: int):
+    """out[row, tgt] = src where tgt < wout; targets >= wout are dropped.
+    Targets in range are distinct within a row."""
+    n = out.shape[0]
+    buf = torch.cat([out, out.new_zeros((n, 1))], dim=1)
+    buf.scatter_(1, torch.clamp(tgt, 0, wout).to(torch.int64),
+                 src.to(out.dtype))
+    return buf[:, :wout]
+
+
+def concat(a_bytes, a_lens, b_bytes, b_lens):
+    n, wa = a_bytes.shape
+    wb = b_bytes.shape[1]
+    wout = wa + wb
+    dev = a_bytes.device
+    pos = torch.arange(wout, dtype=I32, device=dev)[None, :]
+    b_idx = pos - a_lens[:, None]
+    valid_b = (b_idx >= 0) & (b_idx < b_lens[:, None])
+    b_gathered = take_cols(b_bytes, torch.clamp(b_idx, 0, wb - 1))
+    out = torch.nn.functional.pad(a_bytes, (0, wb))
+    out = torch.where(valid_b, b_gathered, out)
+    inside = (pos < a_lens[:, None]) | valid_b
+    return torch.where(inside, out, 0).to(U8), (a_lens + b_lens).to(I32)
+
+
+def equals(a_bytes, a_lens, b_bytes, b_lens):
+    """a == b. Bytes past each length are zero, so equal lengths plus equal
+    bytes over the narrower width decide it: a string longer than the
+    narrow side's width fails the length check."""
+    w = min(a_bytes.shape[1], b_bytes.shape[1])
+    same = (a_bytes[:, :w] == b_bytes[:, :w]).all(dim=1)
+    return same & (a_lens == b_lens)
+
+
+# ---------------------------------------------------------------------------
+# parse / format
+# ---------------------------------------------------------------------------
+
+# post-strip width cap for numeric parses: an i64 needs <= 20 characters;
+# longer non-space spans route to the interpreter
+_PARSE_WIN = 32
+
+
+def _is_space(bytes_):
+    """ASCII whitespace as str.strip() sees it (\\t \\n \\v \\f \\r and
+    space); the other Unicode whitespace is non-ASCII and routes."""
+    return (bytes_ == 32) | ((bytes_ >= 9) & (bytes_ <= 13))
+
+
+def _span(bytes_, lens):
+    """(first, last) non-space position inside each row: first = w + 1 and
+    last = -1 for empty or all-space rows."""
+    w = bytes_.shape[1]
+    pos = torch.arange(w, dtype=I32, device=bytes_.device)[None, :]
+    inside = pos < lens[:, None]
+    core = inside & ~_is_space(bytes_)
+    fs = torch.where(core, pos, w + 1).min(dim=1).values
+    ls = torch.where(core, pos, -1).max(dim=1).values
+    return pos, inside, fs, ls
+
+
+def _narrowed_parse(core, bytes_, lens):
+    """Run a numeric parse core on a _PARSE_WIN-wide window that starts at
+    each row's first non-space byte, instead of the full width. Rows whose
+    non-space span is wider than the window can still be valid numbers
+    ('0' * 40 + '7'): they route to the interpreter."""
+    w = bytes_.shape[1]
+    dev = bytes_.device
+    _, _, fs, ls = _span(bytes_, lens)
+    span = torch.clamp(ls - fs + 1, min=0)
+    win = min(w, _PARSE_WIN)
+    cols = torch.arange(win, dtype=I32, device=dev)[None, :]
+    sb = take_cols(bytes_, torch.clamp(fs[:, None] + cols, 0, w - 1))
+    sl = torch.clamp(span, max=win).to(I32)
+    sb = torch.where(cols < sl[:, None], sb, 0).to(U8)
+    val, bad, route = core(sb, sl)
+    long_rows = span > win
+    return val, bad & ~long_rows, route | long_rows
+
+
+def parse_i64(bytes_, lens):
+    """int(s) semantics: optional surrounding whitespace, optional sign,
+    ASCII digits. Returns (val int64 [N], bad bool [N], route bool [N]).
+    `bad` rows raise ValueError in CPython. `route` rows are valid for
+    CPython but outside this kernel: PEP 515 underscores ('1_000'),
+    non-ASCII digits or whitespace, values outside int64 (and int64's
+    minimum, conservatively), spans wider than the parse window; they
+    resolve on the interpreter."""
+    if bytes_.shape[1] <= _PARSE_WIN:
+        return _parse_i64_core(bytes_, lens)
+    return _narrowed_parse(_parse_i64_core, bytes_, lens)
+
+
+_I64_MAX_LIT = np.frombuffer(b"9223372036854775807", np.uint8).astype(
+    np.int64) - 48
+_P10 = np.array([10 ** k for k in range(19)], dtype=np.int64)
+
+
+def _parse_i64_core(sb, sl):
+    """Digits are read from a <= 20-byte window after the sign, weighted by
+    their power of ten and summed: every term is exact and partial sums of
+    an in-range value never exceed it, so this equals the sequential
+    Horner evaluation."""
+    n, w = sb.shape
+    dev = sb.device
+    pos, inside, fs, ls = _span(sb, sl)
+    sp = _is_space(sb)
+    empty = ls < 0
+    # whitespace strictly inside the span is invalid ("1 2")
+    inner_sp = (sp & (pos >= fs[:, None]) & (pos <= ls[:, None])).any(dim=1)
+    first = take_cols(sb, torch.clamp(fs, 0, w - 1)[:, None])[:, 0]
+    has_sign = (first == 43) | (first == 45)
+    neg = first == 45
+    digit_start = fs + has_sign.to(I32)
+    ndigits = ls - digit_start + 1
+    win = min(w, 20)
+    pos_w = digit_start[:, None] + torch.arange(win, dtype=I32,
+                                                device=dev)[None, :]
+    wb = take_cols(sb, torch.clamp(pos_w, 0, w - 1))
+    in_zone = pos_w <= ls[:, None]
+    is_digit = (wb >= 48) & (wb <= 57)
+    bad = (in_zone & ~is_digit).any(dim=1) | (ndigits <= 0) | empty \
+        | inner_sp
+    dw = torch.where(in_zone, wb.to(torch.int64) - 48, 0)
+    exp = ndigits[:, None] - 1 - torch.arange(win, dtype=I32,
+                                              device=dev)[None, :]
+    term_ok = in_zone & (exp >= 0) & (exp <= 18)
+    p10 = _on(dev, "p10", _P10)
+    val = torch.where(term_ok, dw * p10[torch.clamp(exp, 0, 18).to(
+        torch.int64)], 0).sum(dim=1)
+    if win >= 19:
+        # 19-digit magnitudes above the int64 maximum: compare the digits
+        # with the maximum's literal at the first place they differ
+        diff = dw[:, :19] - _on(dev, "i64max", _I64_MAX_LIT)[None, :]
+        cols19 = torch.arange(19, dtype=torch.int64, device=dev)[None, :]
+        firstd = torch.where(diff != 0, cols19, 19).min(dim=1).values
+        over = torch.gather(torch.nn.functional.pad(diff, (0, 1)), 1,
+                            firstd[:, None])[:, 0] > 0
+        ovf = (ndigits == 19) & over
+    else:
+        ovf = torch.zeros(n, dtype=torch.bool, device=dev)
+    outside = (inside & ((sb == 95) | (sb >= 128))).any(dim=1)
+    bad = bad & ~outside
+    route = (ovf | (ndigits > 19) | outside) & ~bad
+    return torch.where(neg, -val, val), bad, route
+
+
+_I64_MAX_DIGITS = 20   # sign + 19 digits
+
+
+def format_i64(vals, width: int = 0, pad_zero: bool = False):
+    """str(i) / '%0Nd' % i -> (bytes [N, max(20, width) + 1], lens [N]).
+
+    Digits come from the value's non-positive mirror (v for v < 0, -v
+    otherwise) by truncating division, so the int64 minimum needs no
+    clamp and nothing leaves int64."""
+    n = vals.shape[0]
+    dev = vals.device
+    w = max(_I64_MAX_DIGITS, width)
+    neg = vals < 0
+    q = torch.where(neg, vals, -vals)
+    # uint64-free: 10**19 exceeds int64, and every int64 has a 0 there
+    p10 = _on(dev, "p10_desc", _P10[::-1].copy())               # 10**18..1
+    digits = -torch.fmod(torch.div(q[:, None], p10[None, :],
+                                   rounding_mode="trunc"), 10)
+    digits = digits.to(U8) + 48
+    digits = torch.cat([torch.full((n, w - 19), 48, dtype=U8, device=dev),
+                        digits], dim=1)
+    lead = (torch.cumsum(digits != 48, dim=1) == 0).sum(dim=1)
+    ndig = torch.clamp(w - lead, min=1)
+    if pad_zero and width > 0:
+        ndig = torch.maximum(ndig, width - neg.to(ndig.dtype))
+    negi = neg.to(torch.int64)
+    out_len = (ndig + negi).to(I32)
+    pos = torch.arange(w + 1, dtype=torch.int64, device=dev)[None, :]
+    digit_idx = pos - negi[:, None] + (w - ndig)[:, None]
+    padded = torch.nn.functional.pad(digits, (0, 1))
+    out = torch.gather(padded, 1, torch.clamp(digit_idx, 0, w))
+    out = torch.where((pos == 0) & neg[:, None], 45, out)
+    out = torch.where(pos < out_len[:, None], out, 0)
+    return out.to(U8), out_len

@@ -1,10 +1,13 @@
 """Logical operator DAG (counterpart of `tuplex_tpu/plan/logical.py`, the
-operators this package supports: parallelize, map, filter).
+operators this package supports: parallelize, map, filter, withColumn,
+mapColumn, selectColumns and the CSV cell decode).
 
 Schema inference IS the sample tracer: operators run their UDF on the
 parent's sample rows via CPython and speculate the normal-case output type
 (reference: TraceVisitor semantics — execute on sample to annotate types).
-The text source lives in io/csvsource.py.
+The reference package can also type UDFs without a sample
+(`compiler/typeinfer.py`); this package infers by sample only. The text and
+CSV sources live in io/csvsource.py.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import itertools
 from typing import Any, Callable, Optional, Sequence
 
 from ..core import typesys as T
+from ..core.errors import TuplexException
 from ..core.row import Row
 from ..utils.reflection import UDFSource, get_udf_source
 
@@ -167,3 +171,164 @@ class FilterOperator(UDFOperator):
             except Exception:
                 continue
         return out
+
+
+class WithColumnOperator(UDFOperator):
+    """Adds or replaces a named column (reference:
+    logical/WithColumnOperator.cc)."""
+
+    def __init__(self, parent: LogicalOperator, column: str, func: Callable):
+        self.column = column
+        super().__init__(parent, func)
+
+    def _infer_schema(self) -> T.RowType:
+        from ..runtime.columns import user_columns
+
+        ps = self.parent.schema()
+        if user_columns(ps) is None:
+            raise TuplexException("withColumn requires named columns")
+        outs = self._sample_outputs()
+        nc = T.PYOBJECT if not outs else T.normal_case_type(outs)[0]
+        cols, types = list(ps.columns), list(ps.types)
+        if self.column in cols:
+            types[cols.index(self.column)] = nc
+        else:
+            cols.append(self.column)
+            types.append(nc)
+        return T.row_of(cols, types)
+
+    def sample(self) -> list[Row]:
+        schema = self.schema()
+        out = []
+        for r in self.parent.cached_sample():
+            try:
+                v = apply_udf_python(self.udf, r)
+            except Exception:
+                continue
+            d = dict(zip(r.columns, r.values))
+            d[self.column] = v
+            out.append(Row([d[c] for c in schema.columns], schema.columns))
+        return out
+
+
+class MapColumnOperator(UDFOperator):
+    """A UDF over ONE column's value (reference:
+    logical/MapColumnOperator.cc)."""
+
+    def __init__(self, parent: LogicalOperator, column: str, func: Callable):
+        self.column = column
+        super().__init__(parent, func)
+
+    def _index(self) -> int:
+        ps = self.parent.schema()
+        if self.column not in (ps.columns or ()):
+            raise TuplexException(f"unknown column {self.column!r}")
+        return ps.columns.index(self.column)
+
+    def _infer_schema(self) -> T.RowType:
+        ps = self.parent.schema()
+        ci = self._index()
+        outs = []
+        for r in self.parent.cached_sample():
+            try:
+                outs.append(self.udf.func(r.values[ci]))
+            except Exception:
+                continue
+        types = list(ps.types)
+        types[ci] = T.PYOBJECT if not outs else T.normal_case_type(outs)[0]
+        return T.row_of(ps.columns, types)
+
+    def sample(self) -> list[Row]:
+        ci = self._index()
+        out = []
+        for r in self.parent.cached_sample():
+            try:
+                v = self.udf.func(r.values[ci])
+            except Exception:
+                continue
+            vals = list(r.values)
+            vals[ci] = v
+            out.append(Row(vals, r.columns))
+        return out
+
+
+class SelectColumnsOperator(LogicalOperator):
+    """Keeps the named (or indexed) columns in the given order."""
+
+    def __init__(self, parent: LogicalOperator, columns: Sequence):
+        super().__init__([parent])
+        self.selected = list(columns)
+
+    def resolve_indices(self, names: Sequence[str]) -> list[int]:
+        idx = []
+        for c in self.selected:
+            if isinstance(c, int):
+                idx.append(c if c >= 0 else len(names) + c)
+            elif c in names:
+                idx.append(list(names).index(c))
+            else:
+                raise TuplexException(f"unknown column {c!r}")
+        return idx
+
+    def schema(self) -> T.RowType:
+        ps = self.parent.schema()
+        idx = self.resolve_indices(ps.columns)
+        return T.row_of([ps.columns[i] for i in idx],
+                        [ps.types[i] for i in idx])
+
+    def sample(self) -> list[Row]:
+        idx = self.resolve_indices(self.parent.schema().columns)
+        cols = self.schema().columns
+        return [Row([r.values[i] for i in idx], cols)
+                for r in self.parent.cached_sample()]
+
+
+class DecodeOperator(LogicalOperator):
+    """Typed decode of raw CSV string cells against the speculated
+    normal-case schema, fused into the stage so parsing runs on the device
+    (reference: JITCSVSourceTaskBuilder / CSVParseRowGenerator fuse parsing
+    into the pipeline). On the interpreter path a cell that does not parse
+    as its column's type stays the raw string, as the reference's general
+    case keeps un-specialized columns."""
+
+    def __init__(self, parent: LogicalOperator, declared: T.RowType,
+                 null_values: Sequence[str]):
+        super().__init__([parent])
+        self.declared = declared
+        self.null_values = tuple(null_values)
+
+    def schema(self) -> T.RowType:
+        return self.declared
+
+    def sample(self) -> list[Row]:
+        cols = self.declared.columns
+        return [Row([decode_cell_python(v, t, self.null_values)
+                     for v, t in zip(r.values, self.declared.types)], cols)
+                for r in self.parent.cached_sample()]
+
+
+def decode_cell_python(cell, t: T.Type, null_values) -> Any:
+    """General-case decode: the normal-case parse where it succeeds, else
+    the raw string survives for the interpreter's UDFs."""
+    if cell is None:
+        return None
+    if not isinstance(cell, str):
+        return cell
+    if cell in null_values:
+        return None
+    base = t.without_option() if t.is_optional() else t
+    try:
+        if base is T.I64:
+            return int(cell)
+        if base is T.F64:
+            return float(cell)
+        if base is T.BOOL:
+            low = cell.strip().lower()
+            if low == "true":
+                return True
+            if low == "false":
+                return False
+            return cell
+    except ValueError:
+        return cell
+    return cell

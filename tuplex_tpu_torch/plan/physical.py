@@ -4,8 +4,9 @@ of `tuplex_tpu/plan/physical.py`).
 A TransformStage turns into ONE Python function over a staged column batch:
 every fused operator contributes torch ops in order (reference:
 StageBuilder.cc fuses a stage's operators into one compiled function).
-Map and filter are the operators of this package, so a plan is a single
-stage over its source.
+None of this package's operators breaks a pipeline, so a plan is a single
+stage over its source. A CSV source's cell decode is the stage's first
+operator: cells parse to their speculated types on the device.
 
 Selective filters may be followed by selection-vector compaction: live rows
 move to the front of a smaller batch so later operators touch fewer rows.
@@ -24,9 +25,11 @@ import torch
 from ..compiler.emitter import EmitCtx, Emitter, Frame
 from ..compiler.pypipeline import build_python_pipeline
 from ..compiler.stagefn import input_row_cv, result_arrays
-from ..compiler.values import CV, cv_arrays, cv_rebuild, tuple_cv
+from ..compiler.values import CV, cv_arrays, cv_rebuild, null_cv, tuple_cv
 from ..core import typesys as T
-from ..core.errors import NotCompilable
+from ..core.errors import ExceptionCode, NotCompilable
+from ..ops import strings as S
+from ..runtime.columns import user_columns
 from ..runtime.torchcfg import I32
 from . import logical as L
 
@@ -109,6 +112,14 @@ class TransformStage:
 
 
 def _emit_op(ctx: EmitCtx, op: L.LogicalOperator, row: CV, keep):
+    if isinstance(op, L.DecodeOperator):
+        return _emit_decode(ctx, op, row), keep
+    if isinstance(op, L.SelectColumnsOperator):
+        if row.elts is None or row.names is None:
+            raise NotCompilable("selectColumns on an unnamed row")
+        idx = op.resolve_indices(row.names)
+        return tuple_cv([row.elts[i] for i in idx],
+                        names=op.schema().columns), keep
     em = Emitter(ctx, op.udf.globals)
     if isinstance(op, L.MapOperator):
         res = em.eval_udf(op.udf, [row])
@@ -121,18 +132,86 @@ def _emit_op(ctx: EmitCtx, op: L.LogicalOperator, row: CV, keep):
         tr = Frame(em, {}).truthy(em.eval_udf(op.udf, [row]))
         ctx.active = ctx.active & tr   # errors past a filter never fire
         return row, keep & tr
+    if isinstance(op, (L.WithColumnOperator, L.MapColumnOperator)):
+        if row.elts is None or row.names is None:
+            raise NotCompilable(f"{type(op).__name__} on an unnamed row")
+        elts, names = list(row.elts), list(row.names)
+        if isinstance(op, L.MapColumnOperator):
+            ci = names.index(op.column)
+            elts[ci] = em.eval_udf(op.udf, [elts[ci]])
+        elif op.column in names:
+            elts[names.index(op.column)] = em.eval_udf(op.udf, [row])
+        else:
+            elts.append(em.eval_udf(op.udf, [row]))
+            names.append(op.column)
+        return tuple_cv(elts, names=names), keep
     raise NotCompilable(f"operator {type(op).__name__} not fusable")
 
 
-def runtime_output_columns(stage: TransformStage):
-    """Output column names of the stage's device result (None = unnamed)."""
-    from ..runtime.columns import user_columns
+def _emit_decode(ctx: EmitCtx, op: L.DecodeOperator, row: CV) -> CV:
+    """Normal-case cell decode on the device (reference:
+    CSVParseRowGenerator.cc's generated parse). A null cell in a column
+    speculated non-Option raises NULLERROR; a cell that does not parse as
+    its column's type raises BADPARSE_STRING_INPUT. Both rows re-run on the
+    interpreter, whose decode keeps the raw string."""
+    frame = Frame(Emitter(ctx, {}), {})
+    cells = row.elts if row.elts is not None else (row,)
+    elts = []
+    for cv, t in zip(cells, op.declared.types):
+        base = t.without_option() if t.is_optional() else t
+        sb, sl = cv.sbytes, cv.slen
+        is_null = ctx.zeros() if cv.valid is None else ~cv.valid
+        for nv in op.null_values:
+            is_null = is_null | S.equals(
+                sb, sl, *S.broadcast_const(nv, ctx.b, ctx.device))
+        if base is T.STR:
+            if t.is_optional():
+                elts.append(CV(t=t, sbytes=sb, slen=sl, valid=~is_null))
+            else:
+                frame.raise_where(is_null, ExceptionCode.NULLERROR)
+                elts.append(CV(t=T.STR, sbytes=sb, slen=sl))
+            continue
+        if base is T.NULL:
+            # a cell in an all-null speculated column violates the normal
+            # case: the interpreter's decode keeps it
+            frame.raise_where(~is_null, ExceptionCode.NORMALCASEVIOLATION)
+            elts.append(null_cv())
+            continue
+        if base is not T.I64:
+            # float and bool cells need parse_f64 / strip, not ported yet
+            raise NotCompilable(f"decode to {t}")
+        val, bad, route = S.parse_i64(sb, sl)
+        # a cell outside int64 violates the i64 column either way
+        bad = bad | route
+        if t.is_optional():
+            frame.raise_where(bad & ~is_null,
+                              ExceptionCode.BADPARSE_STRING_INPUT)
+            elts.append(CV(t=t, data=val, valid=~is_null))
+        else:
+            frame.raise_where(is_null, ExceptionCode.NULLERROR)
+            frame.raise_where(bad & ~is_null,
+                              ExceptionCode.BADPARSE_STRING_INPUT)
+            elts.append(CV(t=T.I64, data=val))
+    names = user_columns(op.declared)
+    if len(elts) == 1 and names is None:
+        return elts[0]
+    return tuple_cv(elts, names=names)
 
+
+def runtime_output_columns(stage: TransformStage):
+    """Output column names of the stage's device result (None = unnamed),
+    following the names through the stage's operators as _emit_op does."""
     names = user_columns(stage.input_schema)
     for op in stage.ops:
-        if isinstance(op, L.MapOperator):
+        if isinstance(op, (L.MapOperator, L.SelectColumnsOperator)):
             out_cols = op.columns()
             names = tuple(out_cols) if out_cols else None
+        elif isinstance(op, L.WithColumnOperator):
+            if names is not None and op.column not in names:
+                names = tuple(names) + (op.column,)
+        elif isinstance(op, L.DecodeOperator):
+            names = user_columns(op.declared)
+        # filter and mapColumn keep the names
     return names
 
 
@@ -244,7 +323,8 @@ def _compact_rows(ctx: EmitCtx, row: CV, keep, rowidx, full_err, overflow,
 
 def plan_stages(sink: L.LogicalOperator) -> list[TransformStage]:
     """Walk the DAG sink -> source (reference: PhysicalPlan.cc:60-238).
-    Map and filter never break a pipeline, so the plan is one stage."""
+    No operator of this package breaks a pipeline, so the plan is one
+    stage."""
     chain: list[L.LogicalOperator] = []
     node = sink
     while node.parents:

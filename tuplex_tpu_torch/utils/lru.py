@@ -1,4 +1,5 @@
-"""Bounded LRU dict for the UDF source memo (utils/reflection.py).
+"""Bounded LRU dict for the UDF source memo (utils/reflection.py) and the
+device constants of ops/strings.py.
 
 Reads refresh recency and an insert past the cap evicts only the single
 oldest entry, so a steady workload keeps its warm entries (a grow-then-
@@ -10,8 +11,8 @@ from collections import OrderedDict
 
 
 class LruDict:
-    """Minimal LRU mapping. Not thread-safe by itself; the memo it backs is
-    only touched under the GIL from planning code."""
+    """Minimal LRU mapping. Not thread-safe by itself; the memos it backs
+    are only touched under the GIL from planning and stage code."""
 
     __slots__ = ("_store", "capacity")
 
