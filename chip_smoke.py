@@ -5,7 +5,9 @@
 Phases, in order; any failure ends the run with a nonzero exit:
 
   1. the card's name and power limit;
-  2. build the NFA scan kernel (csrc/nfa_scan.cu) with nvcc;
+  2. build the NFA scan kernel (csrc/nfa_scan.cu) with nvcc and, at the
+     same time, the native host module (native/src/fasttransfer.cpp) with
+     g++;
   3. the kernel against its plain torch version on the card: the pattern
      x string matrix of the reference package's NFA tests, seeded random
      byte matrices of 1,000,003 rows x 128 bytes, edge inputs (widths 75,
@@ -16,11 +18,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
      replaced;
   4. the dual-mode smoke pipeline through Context() on the card;
   5. the log grep over 1,891,715 generated Apache log lines (seed 17, one
-     non-ASCII line in every 100,000), checked against a plain Python loop;
+     non-ASCII line in every 100,000): the text source timed apart with the
+     native module and with its Python path (their partitions must be
+     equal), then the pipeline through Context() on the card, checked
+     against a plain Python loop, then its results decoded to Python both
+     ways (equal rows);
   6. Zillow Z1 over 1,000,000 generated rows (seed 42, about 148 MB of
-     CSV): the CSV source timed apart (read, split, byte matrices), then
-     the pipeline through Context() on the card, checked against the plain
-     Python loop on the same file (rows, order and types).
+     CSV): the CSV source timed apart (read; split and byte matrices with
+     the native module and with the numpy path, whose arrays and
+     partitions must be equal), then the pipeline through Context() on the
+     card, checked against the plain Python loop on the same file (rows,
+     order and types), then its results decoded to Python both ways;
+  7. every entry point of the native module against its Python path on
+     small inputs. The run fails unless the main path (phases 4-6) called
+     the native entry points it uses and every entry point was called.
 
 It prints one JSON line of kernel numbers, then the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs CUDA
@@ -30,6 +41,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -37,6 +49,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,11 +57,13 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
 
-from tuplex_tpu_torch import Context                      # noqa: E402
+from tuplex_tpu_torch import Context, native              # noqa: E402
+from tuplex_tpu_torch.core import typesys as T            # noqa: E402
 from tuplex_tpu_torch.io import csvsource                 # noqa: E402
 from tuplex_tpu_torch.models import logs, zillow          # noqa: E402
 from tuplex_tpu_torch.ops import nfa_cuda                 # noqa: E402
 from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
+from tuplex_tpu_torch.plan.physical import plan_stages    # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
 
 LOG_LINES = 1_891_715       # NASA-HTTP, July 1995: one month of requests
@@ -183,7 +198,140 @@ def check_kernel(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
     return err
 
 
-def zillow_phase(tmp: str) -> None:
+@contextlib.contextmanager
+def python_path():
+    """The native module switched off: every caller takes its Python
+    path, as on a host without g++."""
+    saved = native._mod, native._tried
+    native._mod, native._tried = None, True
+    try:
+        yield
+    finally:
+        native._mod, native._tried = saved
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def same_arrays(a, b, what: str) -> None:
+    for x, y in zip(a, b, strict=True):
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not np.array_equal(x, y):
+            raise AssertionError(f"{what}: native != Python path")
+
+
+def same_partitions(pa: list, pb: list, what: str) -> None:
+    """Equal partitions: sizes, start indices, every leaf's arrays, boxed
+    rows and their slots."""
+    if len(pa) != len(pb):
+        raise AssertionError(f"{what}: {len(pa)} != {len(pb)} partitions")
+    for a, b in zip(pa, pb):
+        if (a.num_rows, a.start_index, a.fallback, sorted(a.leaves)) != \
+                (b.num_rows, b.start_index, b.fallback, sorted(b.leaves)):
+            raise AssertionError(f"{what}: partitions differ")
+        same_arrays([a.normal_mask if a.normal_mask is not None
+                     else np.ones(0, bool)],
+                    [b.normal_mask if b.normal_mask is not None
+                     else np.ones(0, bool)], what)
+        for key, la in a.leaves.items():
+            lb = b.leaves[key]
+            same_arrays([la.bytes, la.lengths], [lb.bytes, lb.lengths], what)
+            if (la.valid is None) != (lb.valid is None):
+                raise AssertionError(f"{what}: validity differs")
+
+
+def results_to_python(make_ds) -> tuple[float, float, int]:
+    """(native s, Python-path s, rows) to decode one run's result
+    partitions to Python values, the last step of collect(); the two
+    decodes must give the same rows."""
+    ctx = Context()
+    stage = plan_stages(make_ds(ctx)._op)[0]
+    res = ctx.backend.execute(
+        stage, C.harmonize_partitions(stage.source.load_partitions()))
+    rows, nat_s = timed(lambda: [v for p in res.partitions
+                                 for v in C.partition_to_pylist(p)])
+    with python_path():
+        rows_py, py_s = timed(lambda: [v for p in res.partitions
+                                       for v in C.partition_to_pylist(p)])
+    if rows != rows_py:
+        raise AssertionError("results to Python: native != Python path")
+    return nat_s, py_s, len(rows)
+
+
+def zero_native_calls() -> None:
+    for k in native.calls:
+        native.calls[k] = 0
+
+
+def native_path_calls(total: dict, need: tuple, what: str) -> dict:
+    """Read the native calls of one main-path run (counted from zero), add
+    them to `total`, and fail unless each entry point in `need` moved."""
+    moved = dict(native.calls)
+    for k, v in moved.items():
+        total[k] += v
+    missing = [k for k in need if not moved[k]]
+    if missing:
+        raise AssertionError(f"{what}: native {missing} not called")
+    return {k: v for k, v in moved.items() if v}
+
+
+def native_check() -> None:
+    """Each native entry point against its Python path on small inputs
+    (flat schemas of every kind, boxed rows, invalid UTF-8, CSV and line
+    edge cases)."""
+    cases = [
+        ([1, None, 3, True, 2**64], T.row_of(["x"], [T.option(T.I64)])),
+        ([1.5, 2, None], T.row_of(["x"], [T.option(T.F64)])),
+        ([True, False, 1], T.row_of(["x"], [T.BOOL])),
+        (["a", None, "\u65e5", 3], T.row_of(["x"], [T.option(T.STR)])),
+        ([(1, "a", 1.5, True), (None, None, None, None), ("bad", "b", 2.5,
+          False), "row", (2**63, "c", 0.5, True)],
+         T.row_of(list("ifsb"), [T.option(T.I64), T.option(T.STR),
+                                 T.option(T.F64), T.option(T.BOOL)])),
+    ]
+    for values, schema in cases:
+        part = C.build_partition(values, schema)
+        got = C.partition_to_pylist(part)
+        with python_path():
+            slow = C.build_partition(values, schema)
+            want = C.partition_to_pylist(slow)
+        if got != want or set(part.fallback) != set(slow.fallback):
+            raise AssertionError(f"native encode/decode != Python path on "
+                                 f"{schema}")
+    rows = [b"ab", b"", "\u65e5\u672c".encode(), b"\xff\xfebad", b"x" * 9]
+    leaf = C.StrLeaf(
+        np.frombuffer(b"".join(r.ljust(9, b"\0") for r in rows),
+                      np.uint8).reshape(len(rows), 9),
+        np.array([len(r) for r in rows], np.int32))
+    got = C._leaf_to_pylist(leaf, len(rows))
+    with python_path():
+        if got != C._leaf_to_pylist(leaf, len(rows)):
+            raise AssertionError("native decode_str != Python path")
+    offs = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    mat, lens, full, w = native.offsets_to_matrix(
+        b"".join(rows), offs.astype(np.int64).tobytes(), len(rows), 0, 4)
+    if (mat, np.frombuffer(lens, np.int32).tolist(),
+            np.frombuffer(full, np.int64).tolist(), w) != \
+            (b"".join(r[:4].ljust(4, b"\0") for r in rows),
+             [min(len(r), 4) for r in rows], [len(r) for r in rows], 4):
+        raise AssertionError("native offsets_to_matrix != its definition")
+    data = b'a,b\r\n1,"2"\n\n"3\n4",5\r6,7\n8,"9""",\n'
+    for k in (1, 2):
+        same_arrays(native.split_csv(data, 44, 34, k, True),
+                    csvsource._split_records(data, 44, 34, k, True),
+                    "split_csv")
+    text = b"a\r\nb\x0bc\n\xff\n\xc2\x85d\re"
+    src, starts, lens = csvsource._line_ranges(text)
+    if [src[s: s + n] for s, n in zip(starts.tolist(), lens.tolist())] != \
+            [ln.encode() for ln in
+             text.decode("utf-8", "replace").splitlines()]:
+        raise AssertionError("native split_lines != str.splitlines")
+
+
+def zillow_phase(tmp: str, total_calls: dict) -> None:
     """Z1 on the card against the plain Python loop on the same file."""
     path = os.path.join(tmp, "zillow.csv")
     t0 = time.perf_counter()
@@ -192,35 +340,47 @@ def zillow_phase(tmp: str) -> None:
           f"{os.path.getsize(path)} bytes, in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # the CSV source alone, the same work the job does
+    # the CSV source alone, the same work the job does, with the native
+    # module and with the numpy path; their outputs must be equal
     stat = Context().csv(path)._op.parent.stat
+    opts = Context().options_store
     t0 = time.perf_counter()
     with open(path, "rb") as fp:
         data = fp.read()
     read_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    csvsource._split_records(data, ord(stat.delimiter), ord(stat.quotechar),
-                             stat.num_columns, stat.has_header)
-    split_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    parts = list(csvsource.csv_partitions(data, stat,
-                                          Context().options_store))
-    parts_s = time.perf_counter() - t0
-    print(f"zillow CSV source: read {read_s:.3f} s, split {split_s:.3f} s, "
-          f"byte matrices {parts_s - split_s:.3f} s (split and matrices "
-          f"{parts_s:.3f} s) -> {len(parts)} partitions, "
-          f"{sum(len(p.fallback) for p in parts)} boxed rows")
-    del data, parts
+    args = (data, ord(stat.delimiter), ord(stat.quotechar),
+            stat.num_columns, stat.has_header)
+    split, split_s = timed(lambda: native.split_csv(*args))
+    split_py, split_py_s = timed(lambda: csvsource._split_records(*args))
+    same_arrays(split, split_py, "zillow split")
+    del split, split_py
+    parts, parts_s = timed(
+        lambda: list(csvsource.csv_partitions(data, stat, opts)))
+    with python_path():
+        parts_py, parts_py_s = timed(
+            lambda: list(csvsource.csv_partitions(data, stat, opts)))
+    same_partitions(parts, parts_py, "zillow partitions")
+    print(f"zillow CSV source: read {read_s:.3f} s; native / numpy path: "
+          f"split {split_s:.3f} / {split_py_s:.3f} s, byte matrices "
+          f"{parts_s - split_s:.3f} / {parts_py_s - split_py_s:.3f} s "
+          f"(split and matrices {parts_s:.3f} / {parts_py_s:.3f} s) -> "
+          f"{len(parts)} partitions, "
+          f"{sum(len(p.fallback) for p in parts)} boxed rows; split arrays "
+          f"and partitions equal")
+    del data, parts, parts_py
 
     t0 = time.perf_counter()
     want = zillow.run_reference_python(path)
     ref_s = time.perf_counter() - t0
     ctx = Context()
+    zero_native_calls()
     t0 = time.perf_counter()
     ds = zillow.build_pipeline(ctx.csv(path))
     got = ds.collect()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    calls = native_path_calls(total_calls, ("split_csv", "gather_rows",
+                                            "decode_columns"), "zillow")
     if got != want or [tuple(map(type, r)) for r in got] != \
             [tuple(map(type, r)) for r in want]:
         bad = next((i for i, (g, w) in enumerate(zip(got, want))
@@ -242,7 +402,11 @@ def zillow_phase(tmp: str) -> None:
           f"slow path {m.slowPathWallTime():.3f} s, backend "
           f"{m.totalWallTime():.3f} s (fast + slow + merge), outside the "
           f"backend {wall - m.totalWallTime():.3f} s (sniff, CSV source, "
-          f"results to Python)")
+          f"results to Python); native calls {calls}")
+    nat_s, py_s, n_rows = results_to_python(
+        lambda c: zillow.build_pipeline(c.csv(path)))
+    print(f"zillow results to Python ({n_rows} rows): native {nat_s:.3f} s, "
+          f"Python path {py_s:.3f} s; rows equal")
     os.remove(path)
 
 
@@ -255,10 +419,15 @@ def main() -> None:
 
     # 2 --------------------------------------------------------------
     t0 = time.perf_counter()
-    lib = nfa_cuda.build()
+    with ThreadPoolExecutor(2) as pool:      # nvcc and g++ side by side
+        lib_f, mod_f = pool.submit(nfa_cuda.build), pool.submit(native.get)
+        lib, mod = lib_f.result(), mod_f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib}")
     if nfa_cuda.build_log:
         print(nfa_cuda.build_log.strip())
+    if mod is None:
+        raise AssertionError("native module: no g++ on PATH")
+    print(f"native module: {mod.__file__}")
 
     # 3 --------------------------------------------------------------
     max_err = 0
@@ -311,9 +480,7 @@ def main() -> None:
     # the batch the log grep stages: first partition, harmonized width
     ctx = Context()
     src = ctx.text(path)._op
-    t0 = time.perf_counter()
     parts = C.harmonize_partitions(src.load_partitions())
-    load_s = time.perf_counter() - t0
     part = parts[0]
     del parts
     batch = C.stage_partition(part, dev)
@@ -334,15 +501,17 @@ def main() -> None:
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({need} row bytes + lens + out at {HBM_BYTES_PER_S:.3g} B/s; "
           f"all N*W bytes: {full_ms:.4f} ms)")
-    print(f"text source: read, split and encode {LOG_LINES} lines into "
-          f"partitions: {load_s:.3f} s")
     del batch, gb, gl, rb, rl
 
     # 4 --------------------------------------------------------------
+    total_calls = {k: 0 for k in native.calls}
     nfa_cuda.launches = 0
     ctx = Context()
     ds = ctx.parallelize([1, 2, None, 4]).map(lambda x: (x, x * x))
+    zero_native_calls()
     got = ds.collect()
+    calls = native_path_calls(total_calls, ("encode_i64", "decode_columns"),
+                              "smoke")
     if got != [(1, 1), (2, 4), (4, 16)]:
         raise AssertionError(f"smoke pipeline: {got}")
     if ctx.metrics.interpreterRows() != 1 or \
@@ -351,19 +520,31 @@ def main() -> None:
                              f"{ctx.metrics.interpreterRows()}, exceptions "
                              f"{ds.exception_counts()}")
     print(f"smoke: {got}, interpreter rows 1, exceptions "
-          f"{ds.exception_counts()}, NFA launches {nfa_cuda.launches}")
+          f"{ds.exception_counts()}, NFA launches {nfa_cuda.launches}, "
+          f"native calls {calls}")
 
     # 5 --------------------------------------------------------------
+    parts, nat_s = timed(src.load_partitions)
+    with python_path():
+        parts_py, py_s = timed(src.load_partitions)
+    same_partitions(parts, parts_py, "text source")
+    print(f"text source: read, split and encode {LOG_LINES} lines into "
+          f"{len(parts)} partitions: native {nat_s:.3f} s, Python path "
+          f"{py_s:.3f} s; partitions equal")
+    del parts, parts_py
     t0 = time.perf_counter()
     want = logs.run_grep_reference(path)
     ref_s = time.perf_counter() - t0
     ctx = Context()
     nfa_cuda.launches = 0
+    zero_native_calls()
     t0 = time.perf_counter()
     got = logs.build_grep(ctx.text(path)).collect()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = nfa_cuda.launches
+    calls = native_path_calls(total_calls, ("split_lines", "gather_rows",
+                                            "decode_columns"), "log grep")
     if got != want:
         raise AssertionError(f"log grep: {len(got)} rows != python "
                              f"{len(want)} rows")
@@ -381,12 +562,27 @@ def main() -> None:
           f"{m.slowPathWallTime():.3f} s, backend {m.totalWallTime():.3f} s "
           f"(fast + slow + merge), outside the backend "
           f"{wall - m.totalWallTime():.3f} s (source read and encode, "
-          f"results to Python)")
+          f"results to Python); native calls {calls}")
+    nat_s, py_s, n_rows = results_to_python(
+        lambda c: logs.build_grep(c.text(path)))
+    print(f"log grep results to Python ({n_rows} rows): native "
+          f"{nat_s:.3f} s, Python path {py_s:.3f} s; rows equal")
     os.remove(path)
 
     # 6 --------------------------------------------------------------
-    zillow_phase(tmp)
+    zillow_phase(tmp, total_calls)
     os.rmdir(tmp)
+
+    # 7 --------------------------------------------------------------
+    zero_native_calls()
+    native_check()
+    for k, v in native.calls.items():
+        total_calls[k] += v
+    if not all(total_calls.values()):
+        raise AssertionError(f"native entry points never called: "
+                             f"{[k for k, v in total_calls.items() if not v]}")
+    print(f"native module == Python path on every entry point; calls in "
+          f"this run {total_calls}")
 
     print(json.dumps({"kernels": [{
         "name": "nfa_scan", "route": "cuda",

@@ -6,7 +6,8 @@
 Generates the Z1 CSV (tuplex_tpu_torch/models/zillow.py, default 1,000,000
 rows, seed 42) and prints:
 
-  1. the card's name and power limit;
+  1. the card's name and power limit, and the native host module (built
+     before any job is timed);
   2. one partition's fused stage (decode and the 12 operators), run once
      to warm up and once under the profiler: its host wall time, the top
      host-side ops by the device time of their kernels (with their calls),
@@ -37,7 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from tuplex_tpu_torch import Context                      # noqa: E402
+from tuplex_tpu_torch import Context, native              # noqa: E402
 from tuplex_tpu_torch.models import zillow                # noqa: E402
 from tuplex_tpu_torch.plan.physical import plan_stages    # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
@@ -141,6 +142,9 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    # the host data plane is built before any job is timed
+    mod = native.get()
+    print(f"native module: {mod.__file__ if mod else 'none (no g++)'}")
     with tempfile.TemporaryDirectory(prefix="z1_profile_") as tmp:
         path = os.path.join(tmp, "zillow.csv")
         zillow.generate_csv(path, args.rows, seed=args.seed)

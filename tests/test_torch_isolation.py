@@ -89,11 +89,78 @@ def test_context_without_cuda_raises(monkeypatch):
     assert tuplex_tpu_torch.Context(device="cpu").device.type == "cpu"
 
 
+def test_zillow_without_a_compiler(tmp_path):
+    """With no g++ on PATH the native module stays unloaded and Z1 runs on
+    the Python path of the CSV source and the result decode."""
+    script = tmp_path / "run.py"
+    script.write_text(textwrap.dedent(f"""
+        import tuplex_tpu_torch
+        from tuplex_tpu_torch import native
+        from tuplex_tpu_torch.models import zillow
+        path = {str(tmp_path / "z.csv")!r}
+        zillow.generate_csv(path, 300, seed=7)
+        ctx = tuplex_tpu_torch.Context(device="cpu")
+        got = zillow.build_pipeline(ctx.csv(path)).collect()
+        print(native.get(), len(got) > 100,
+              got == zillow.run_reference_python(path),
+              ctx.metrics.stages[-1]["tier"], sum(native.calls.values()))
+    """))
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=str(tmp_path / "empty"))
+    res = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines() == ["None True True compiled 0"]
+
+
+def _aot_fixture_set(tree: ast.Module) -> bool:
+    """An autouse fixture that sets TUPLEX_AOT_CACHE with monkeypatch."""
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        autouse = any(isinstance(d, ast.Call) and any(
+            k.arg == "autouse" and getattr(k.value, "value", None) is True
+            for k in d.keywords) for d in fn.decorator_list)
+        sets = any(
+            isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr == "setenv"
+            and getattr(n.func.value, "id", None) == "monkeypatch"
+            and n.args and getattr(n.args[0], "value", None)
+            == "TUPLEX_AOT_CACHE" for n in ast.walk(fn))
+        if autouse and sets:
+            return True
+    return False
+
+
+def test_reference_contexts_keep_off_the_shared_aot_store():
+    """Every port test file that builds a `tuplex_tpu.Context` points the
+    reference's AOT store at a directory of its own: the store under
+    ~/.cache is shared by every process of one HOME, and a warm one breaks
+    reference tests (ROADMAP C5)."""
+    tests = os.path.join(REPO, "tests")
+    checked = []
+    for name in sorted(os.listdir(tests)):
+        if not (name.startswith("test_torch_") and name.endswith(".py")):
+            continue
+        tree = ast.parse(open(os.path.join(tests, name)).read())
+        builds = any(
+            isinstance(n, ast.Attribute) and n.attr == "Context"
+            and getattr(n.value, "id", None) == "tuplex_tpu"
+            for n in ast.walk(tree)) or any(
+            isinstance(n, ast.ImportFrom) and n.module == "tuplex_tpu"
+            and any(a.name == "Context" for a in n.names)
+            for n in ast.walk(tree))
+        if builds:
+            checked.append(name)
+            assert _aot_fixture_set(tree), name
+    assert {"test_torch_pipeline.py", "test_torch_faults.py"} <= set(checked)
+
+
 def test_package_imports_neither_jax_nor_reference():
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_zillow_profile.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert os.path.join(PKG, "native", "__init__.py") in paths
     for path in paths:
         tree = ast.parse(open(path).read())
         for node in ast.walk(tree):

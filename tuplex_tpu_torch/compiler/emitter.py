@@ -264,6 +264,10 @@ class Frame:
             if v.is_const:
                 return const_cv(-v.const)
             v = self._require_numeric(v, "unary -")
+            if v.base is T.I64:
+                # -(-2**63) is beyond int64: Python's int goes on
+                self.raise_where(v.data == I64_MIN,
+                                 ExceptionCode.NORMALCASEVIOLATION)
             data = v.data.to(I64) if v.base is T.BOOL else v.data
             return CV(t=T.I64 if v.base is T.BOOL else v.t, data=-data)
         if isinstance(node.op, ast.UAdd):
@@ -501,12 +505,19 @@ class Frame:
         if out_t is T.BOOL:
             out_t = T.I64  # bool+bool -> int
         ad, bd = self._cast(a.data, out_t), self._cast(b.data, out_t)
-        if isinstance(op, ast.Add):
-            return CV(t=out_t, data=ad + bd)
-        if isinstance(op, ast.Sub):
-            return CV(t=out_t, data=ad - bd)
-        if isinstance(op, ast.Mult):
-            return CV(t=out_t, data=ad * bd)
+        if isinstance(op, (ast.Add, ast.Sub, ast.Mult)):
+            if isinstance(op, ast.Add):
+                r = ad + bd
+            elif isinstance(op, ast.Sub):
+                r = ad - bd
+            else:
+                r = ad * bd
+            if out_t is T.I64:
+                # rows whose result left int64 interpret: Python's int
+                # does not wrap
+                self.raise_where(_i64_wrapped(op, ad, bd, r),
+                                 ExceptionCode.NORMALCASEVIOLATION)
+            return CV(t=out_t, data=r)
         if isinstance(op, ast.Div):
             bz = self._cast(b.data, T.F64)
             self.raise_where(bz == 0.0, ExceptionCode.ZERODIVISIONERROR)
@@ -515,7 +526,16 @@ class Frame:
         if isinstance(op, (ast.FloorDiv, ast.Mod)):
             zero = bd == 0
             self.raise_where(zero, ExceptionCode.ZERODIVISIONERROR)
-            bd = torch.where(zero, torch.ones_like(bd), bd)
+            one = zero
+            if out_t is T.I64:
+                # -2**63 // -1 is 2**63, beyond int64, and interprets;
+                # -2**63 % -1 is 0, as with a divisor of 1
+                wraps = (ad == I64_MIN) & (bd == -1)
+                if isinstance(op, ast.FloorDiv):
+                    self.raise_where(wraps,
+                                     ExceptionCode.NORMALCASEVIOLATION)
+                one = zero | wraps
+            bd = torch.where(one, torch.ones_like(bd), bd)
             if isinstance(op, ast.FloorDiv):
                 return CV(t=out_t, data=torch.floor_divide(ad, bd))
             return CV(t=out_t, data=torch.remainder(ad, bd))  # python %
@@ -673,12 +693,15 @@ class Frame:
             arg_list = [args]
         out: Optional[CV] = None
         ai = 0
-        for piece in re.split(r"(%%|%(?:0\d+)?d)", fmt.const):
+        # the split's odd pieces are the specs it captured; a '%' in any
+        # other piece is a directive this subset does not compile
+        pieces = re.split(r"(%%|%(?:0\d+)?d)", fmt.const)
+        for pi, piece in enumerate(pieces):
             if not piece:
                 continue
             if piece == "%%":
                 part = const_cv("%")
-            elif piece.startswith("%"):
+            elif pi % 2:
                 if ai >= len(arg_list):
                     raise NotCompilable("format arity")
                 arg = self._unwrap_option(arg_list[ai], "%d")
@@ -914,6 +937,24 @@ def _merge_valid(mask: torch.Tensor, am: CV, bm: CV, n: int):
     av = ones if am.valid is None else am.valid
     bv = ones if bm.valid is None else bm.valid
     return torch.where(mask, av, bv)
+
+
+I64_MIN = -(1 << 63)
+
+
+def _i64_wrapped(op: ast.operator, a: torch.Tensor, b: torch.Tensor,
+                 r: torch.Tensor) -> torch.Tensor:
+    """Rows where r, the int64 result of `a op b` (+, - or *), wrapped."""
+    if isinstance(op, ast.Add):
+        return ((a ^ r) & (b ^ r)) < 0
+    if isinstance(op, ast.Sub):
+        return ((a ^ b) & (a ^ r)) < 0
+    # a product that did not wrap divides back to b exactly; with a == -1
+    # it wraps only at b == -2**63, whose quotient would itself wrap
+    neg1 = a == -1
+    safe = torch.where((a == 0) | neg1, torch.ones_like(a), a)
+    back = torch.div(r, safe, rounding_mode="trunc")
+    return torch.where(neg1, b == I64_MIN, (a != 0) & (back != b))
 
 
 def _const_binop(op: ast.operator, a, b):

@@ -8,8 +8,10 @@ fused into the pipeline):
     by per-line count consistency, header detected by type mismatch,
     per-column normal-case type at tuplex.normalcaseThreshold)
   * bulk read: every column a byte matrix built straight from the file's
-    bytes with numpy, no Python string per cell (the reference package uses
-    pyarrow.csv here; this package does not need pyarrow)
+    bytes, no Python string per cell (the reference package uses
+    pyarrow.csv here; this package does not need pyarrow): the native
+    module's one-pass splitter and gather, or numpy where it is not
+    available
   * typed decoding runs on the device inside the fused stage
     (DecodeOperator); cells that fail to parse re-run on the interpreter
 """
@@ -24,6 +26,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..core import typesys as T
 from ..core.errors import TuplexException
 from ..core.row import Row
@@ -69,9 +72,24 @@ class TextSourceOperator(L.LogicalOperator):
         offset = 0
         rows_pp = max(256, self.options.get_size(
             "tuplex.partitionSize", 32 << 20) // 64)
+        # null values need a Python string per line to compare
+        direct = not self.null_values and native.get() is not None
         for f in self.files:
             with VirtualFileSystem.open_read(f, "rb") as fp:
-                text = fp.read().decode("utf-8", errors="replace")
+                data = fp.read()
+            if direct:
+                src, starts, lens = _line_ranges(data)
+                for s in range(0, len(starts), rows_pp):
+                    n = min(rows_pp, len(starts) - s)
+                    (mat, ln), = native.gather_rows(
+                        src, starts[s: s + n], lens[s: s + n], None, n)
+                    parts.append(C.Partition(
+                        schema=self._schema, num_rows=n,
+                        leaves={"0": C.StrLeaf(mat, ln)},
+                        start_index=offset + s))
+                offset += len(starts)
+                continue
+            text = data.decode("utf-8", errors="replace")
             lines = self._null_map(text.splitlines())
             for s in range(0, len(lines), rows_pp):
                 parts.append(C.build_partition(lines[s: s + rows_pp],
@@ -79,6 +97,36 @@ class TextSourceOperator(L.LogicalOperator):
                                                start_index=offset + s))
             offset += len(lines)
         return parts
+
+
+def _line_ranges(data: bytes):
+    """(source bytes, line starts, line lengths) such that the lines of
+    `data.decode("utf-8", "replace").splitlines()` are the source's byte
+    ranges, UTF-8 encoded. Lines come straight from `data`; only the rare
+    pieces the native splitter marks odd (another splitlines separator, or
+    bytes that are not UTF-8) are decoded and split by Python, and their
+    lines appended to the source."""
+    starts, ends, odd = native.split_lines(data)
+    if not odd:
+        return data, starts, ends - starts
+    extra = bytearray()
+    segs_s, segs_l, prev = [], [], 0
+    for i in odd:
+        segs_s.append(starts[prev:i])
+        segs_l.append(ends[prev:i] - starts[prev:i])
+        # the piece with its terminator, so a separator at its end still
+        # ends an (empty) line, as in the whole text
+        stop = int(starts[i + 1]) if i + 1 < len(starts) else len(data)
+        for line in data[starts[i]: stop].decode(
+                "utf-8", errors="replace").splitlines():
+            b = line.encode("utf-8")
+            segs_s.append(np.array([len(data) + len(extra)], np.int64))
+            segs_l.append(np.array([len(b)], np.int64))
+            extra += b
+        prev = i + 1
+    segs_s.append(starts[prev:])
+    segs_l.append(ends[prev:] - starts[prev:])
+    return data + bytes(extra), np.concatenate(segs_s), np.concatenate(segs_l)
 
 
 def make_text_operator(options, pattern: str, null_values=None):
@@ -295,9 +343,9 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
     """Partitions of raw cells over one file's bytes, in file order.
 
     Records whose quotes are all whole-field quoting ("a,b" as one field)
-    split with numpy alone: quote parity from a running count of quote
-    bytes, then the delimiters and newlines outside quotes, then each
-    field's start and length, then one byte matrix per column. Records the
+    take the fast path: the native module's one-pass splitter (or
+    `_split_records`, its numpy counterpart) gives each field's start and
+    length, and a gather builds each column's byte matrix. Records the
     splitter does not take (a quote inside a field, a doubled "" escape, a
     newline inside quotes, a wrong field count, a cell wider than
     tuplex.tpu.maxStrBytes) are read by Python's csv module and keep their
@@ -307,12 +355,13 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
     max_w = options.get_int("tuplex.tpu.maxStrBytes", 4096)
     if not data:
         return
-    starts, ends, good, fstart, flen = _split_records(
+    use_native = native.get() is not None
+    split = native.split_csv if use_native else _split_records
+    starts, ends, good, fstart, flen = split(
         data, ord(stat.delimiter), ord(stat.quotechar), k, stat.has_header)
-    if good.any():
-        fast_rows = np.nonzero(good)[0]
-        too_wide = (flen > max_w).any(axis=1)
-        good[fast_rows[too_wide]] = False
+    too_wide = (flen > max_w).any(axis=1)
+    if too_wide.any():
+        good[np.flatnonzero(good)[too_wide]] = False
         fstart, flen = fstart[~too_wide], flen[~too_wide]
     # the boxed rows: every record the splitter did not take, re-read by
     # Python's csv module from its own bytes
@@ -340,10 +389,11 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
     fast_slot = slot_of[:n_fast]
     boxed_slot = slot_of[n_fast:]
     schema = T.row_of(stat.columns, [T.option(T.STR)] * k)
-    # room for a full-width window at the last field
-    padded = np.concatenate([np.frombuffer(data, np.uint8),
-                             np.zeros(max(int(flen.max(initial=0)), 1),
-                                      np.uint8)])
+    if not use_native:
+        # room for a full-width window at the last field
+        padded = np.concatenate([np.frombuffer(data, np.uint8),
+                                 np.zeros(max(int(flen.max(initial=0)), 1),
+                                          np.uint8)])
     bytes_per_row = max(16, 2 * len(data) // max(total, 1))
     rows_pp = max(256, options.get_size("tuplex.partitionSize", 32 << 20)
                   // bytes_per_row)
@@ -351,10 +401,15 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
     for m in _chunk_sizes(total, rows_pp):
         f0, f1 = np.searchsorted(fast_slot, [start, start + m])
         pos = fast_slot[f0:f1] - start
-        leaves = {}
-        for ci in range(k):
-            leaves[str(ci)] = _column_leaf(padded, fstart[f0:f1, ci],
-                                           flen[f0:f1, ci], pos, m)
+        if use_native:    # every column of the partition in one pass
+            leaves = {str(ci): C.StrLeaf(mat, lens) for ci, (mat, lens) in
+                      enumerate(native.gather_rows(
+                          data, fstart[f0:f1], flen[f0:f1],
+                          None if f1 - f0 == m else pos, m))}
+        else:
+            leaves = {str(ci): _column_leaf(padded, fstart[f0:f1, ci],
+                                            flen[f0:f1, ci], pos, m)
+                      for ci in range(k)}
         part = C.Partition(schema=schema, num_rows=m, leaves=leaves,
                            start_index=base_index + start)
         b0, b1 = np.searchsorted(boxed_slot, [start, start + m])

@@ -16,7 +16,9 @@ Same layout as the reference package:
     see few distinct shapes.
 
 Host leaves are numpy; `stage_partition` copies them into torch tensors on
-the run's device. Byte matrices are built with numpy (no native module).
+the run's device. Flat schemas encode and decode through the native module
+(`tuplex_tpu_torch.native`) when it is available, else through the Python
+loops here, with the same rows and the same fallback rows.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..core import typesys as T
 from ..core.row import Row
 
@@ -202,6 +205,9 @@ def build_partition(values: Sequence[Any], schema: T.RowType,
     """Encode boxed python row values into a Partition against `schema`.
     Rows that don't conform keep their position as placeholder slots and
     are boxed into `fallback`."""
+    fast = _fast_partition(values, schema, start_index)
+    if fast is not None:
+        return fast
     n = len(values)
     multi = len(schema.columns) > 1
     if schema.types == (T.STR,) and all(type(v) is str for v in values):
@@ -248,6 +254,74 @@ def build_partition(values: Sequence[Any], schema: T.RowType,
     return Partition(schema=schema, num_rows=n, leaves=leaves,
                      normal_mask=mask, fallback=fallback,
                      start_index=start_index)
+
+
+# native bulk encode (the reference package's _fast_partition)
+
+_KIND_CODES = {T.I64: 0, T.F64: 1, T.BOOL: 2, T.STR: 3}
+
+
+def _flat_kinds(schema: T.RowType) -> Optional[list[tuple[int, bool]]]:
+    """(kind code, optional) per column when every column is a flat
+    primitive (i64, f64, bool, str, each maybe Option), else None."""
+    kinds = []
+    for t in schema.types:
+        code = _KIND_CODES.get(t.without_option() if t.is_optional() else t)
+        if code is None:
+            return None
+        kinds.append((code, t.is_optional()))
+    return kinds
+
+
+def _fast_partition(values: Sequence[Any], schema: T.RowType,
+                    start_index: int) -> Optional[Partition]:
+    """One C pass per column (one over all row tuples when there are
+    several columns) for flat schemas; None when the schema is not flat or
+    the native module is not available. Rows whose cells do not conform
+    (arity, type, an int beyond int64, None in a non-Option column, a row
+    that is not exactly a tuple) are boxed into `fallback`."""
+    kinds = _flat_kinds(schema)
+    if kinds is None or native.get() is None:
+        return None
+    n = len(values)
+    if len(kinds) > 1:
+        encoded, bad = native.encode_rows(list(values),
+                                          [code for code, _ in kinds])
+    else:
+        col = [v[0] if type(v) is tuple and len(v) == 1 else v
+               for v in values]
+        encode = (native.encode_i64, native.encode_f64, native.encode_bool,
+                  native.encode_str)[kinds[0][0]]
+        *enc, bad = encode(col)
+        encoded = [tuple(enc)]
+    bad_rows = set(bad)
+    leaves: dict[str, Leaf] = {}
+    for ci, (code, opt) in enumerate(kinds):
+        leaves[str(ci)], valid = _leaf_from_encoded(code, opt, encoded[ci], n)
+        if not opt:   # None in a non-Option column leaves the normal case
+            bad_rows.update(np.flatnonzero(~valid).tolist())
+    part = Partition(schema=schema, num_rows=n, leaves=leaves,
+                     start_index=start_index)
+    if bad_rows:
+        part.normal_mask = np.ones(n, dtype=np.bool_)
+        for i in sorted(bad_rows):
+            part.normal_mask[i] = False
+            part.fallback[i] = values[i]
+    return part
+
+
+def _leaf_from_encoded(code: int, opt: bool, enc: tuple, n: int):
+    """(leaf, validity of every slot) from one column's encoder buffers."""
+    if code == 3:
+        mat_b, lens_b, valid_b, w = enc
+        mat = np.frombuffer(mat_b, dtype=np.uint8).reshape(n, w).copy()
+        lens = np.frombuffer(lens_b, dtype=np.int32).copy()
+        valid = np.frombuffer(valid_b, dtype=np.bool_).copy()
+        return StrLeaf(mat, lens, valid if opt else None), valid
+    data_b, valid_b = enc
+    data = np.frombuffer(data_b, dtype=(np.int64, np.float64, np.bool_)[code])
+    valid = np.frombuffer(valid_b, dtype=np.bool_).copy()
+    return NumericLeaf(data.copy(), valid if opt else None), valid
 
 
 def _placeholder(t: T.Type) -> Any:
@@ -520,9 +594,13 @@ def _leaf_to_pylist(leaf: Leaf, n: int) -> list:
     # StrLeaf: one flat buffer + byte slicing beats per-row np indexing
     w = leaf.bytes.shape[1] if leaf.bytes.ndim == 2 else 1
     flat = np.ascontiguousarray(leaf.bytes[:n]).tobytes()
-    lens = leaf.lengths[:n].tolist()
-    out = [flat[i * w: i * w + lens[i]].decode("utf-8", "replace")
-           for i in range(n)]
+    if native.get() is not None:
+        lens_b = np.ascontiguousarray(leaf.lengths[:n], np.int32).tobytes()
+        out = native.decode_str(flat, lens_b, w, n)
+    else:
+        lens = leaf.lengths[:n].tolist()
+        out = [flat[i * w: i * w + lens[i]].decode("utf-8", "replace")
+               for i in range(n)]
     if leaf.valid is not None:
         vv = leaf.valid[:n].tolist()
         return [s if vv[i] else None for i, s in enumerate(out)]
@@ -550,17 +628,45 @@ def _column_pylist(part: Partition, path: str, t: T.Type, n: int) -> list:
     return _leaf_to_pylist(part.leaves[path], n)
 
 
+def _decode_columns_native(part: Partition, n: int) -> Optional[list]:
+    """Row tuples (bare values for one column) in one C pass for flat
+    schemas; None when the schema is not flat or the native module is not
+    available (the reference package's _decode_columns_native)."""
+    kinds = _flat_kinds(part.schema)
+    if kinds is None or native.get() is None:
+        return None
+    spec = []
+    for ci, (code, _) in enumerate(kinds):
+        leaf = part.leaves[str(ci)]
+        if not isinstance(leaf, StrLeaf if code == 3 else NumericLeaf):
+            return None
+        valid = None if leaf.valid is None else \
+            np.ascontiguousarray(leaf.valid[:n], np.uint8)
+        if code == 3:
+            mat = np.ascontiguousarray(leaf.bytes[:n])
+            lens = np.ascontiguousarray(leaf.lengths[:n], np.int32)
+            spec.append((3, mat, valid, lens, mat.shape[1]))
+        else:
+            data = np.ascontiguousarray(
+                leaf.data[:n], (np.int64, np.float64, np.uint8)[code])
+            spec.append((code, data, valid))
+    return native.decode_columns(spec, n)
+
+
 def partition_to_pylist(part: Partition) -> list:
     """Bulk row decode: single-column rows collect as bare values."""
     n = part.num_rows
     if n == 0:
         return []
-    cols = [_column_pylist(part, str(ci), ct, n)
-            for ci, ct in enumerate(part.schema.types)]
-    out = list(cols[0]) if len(cols) == 1 else list(zip(*cols))
+    single = len(part.schema.types) == 1
+    out = _decode_columns_native(part, n)
+    if out is None:
+        cols = [_column_pylist(part, str(ci), ct, n)
+                for ci, ct in enumerate(part.schema.types)]
+        out = list(cols[0]) if single else list(zip(*cols))
     for i, v in part.fallback.items():
         # Row.from_value semantics: single-field tuples collect bare
-        if len(cols) == 1 and isinstance(v, tuple) and len(v) == 1:
+        if single and isinstance(v, tuple) and len(v) == 1:
             out[i] = v[0]
         else:
             out[i] = v
