@@ -29,8 +29,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
      partitions must be equal), then the pipeline through Context() on the
      card, checked against the plain Python loop on the same file (rows,
      order and types), then its results decoded to Python both ways;
-  7. every entry point of the native module against its Python path on
-     small inputs. The run fails unless the main path (phases 4-6) called
+  7. the aggregate stage: TPC-H Q6 and Q1 over 1,000,000 generated
+     lineitem rows (seed 7; SF1 has 6,001,215), each run twice through
+     Context() on the card and checked against the plain Python loops over
+     the same file (floats within 1e-9 relative, counts, keys and Q1's
+     group order exact), the two runs' results the same bits, Q6's
+     transform stage fetching no row column and no row taking the
+     interpreter; the CSV source timed apart, then Q6 under torch.profiler
+     for the card's busy time and idle share; a 2,000-row lineitem file
+     with 'N/A' and empty quantity and discount cells through both queries
+     (rows and exception counts equal a plain CPython loop's); and NYC 311
+     over 1,000,000 generated rows (seed 23), equal in order to the plain
+     loop;
+  8. every entry point of the native module against its Python path on
+     small inputs. The run fails unless the main path (phases 4-7) called
      the native entry points it uses and every entry point was called.
 
 It prints one JSON line of kernel numbers, then the card's name and power
@@ -60,15 +72,22 @@ if not torch.cuda.is_available():
 from tuplex_tpu_torch import Context, native              # noqa: E402
 from tuplex_tpu_torch.core import typesys as T            # noqa: E402
 from tuplex_tpu_torch.io import csvsource                 # noqa: E402
-from tuplex_tpu_torch.models import logs, zillow          # noqa: E402
+from tuplex_tpu_torch.models import (logs, nyc311,        # noqa: E402
+                                     tpch, zillow)
 from tuplex_tpu_torch.ops import nfa_cuda                 # noqa: E402
 from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
 from tuplex_tpu_torch.plan.physical import plan_stages    # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
+from tuplex_tpu_torch.runtime.devprof import device_busy  # noqa: E402
 
 LOG_LINES = 1_891_715       # NASA-HTTP, July 1995: one month of requests
 ZILLOW_ROWS = 1_000_000     # cut from a full scrape for the time limit
 ZILLOW_SEED = 42
+TPCH_ROWS = 1_000_000       # SF1's lineitem has 6,001,215: cut for time
+TPCH_SEED = 7
+NYC311_ROWS = 1_000_000
+NYC311_SEED = 23
+REL_TOL = 1e-9              # float sums: partials merged per partition
 NON_ASCII_EVERY = 100_000
 RANDOM_ROWS = 1_000_003     # not a multiple of any block size
 RANDOM_WIDTH = 128
@@ -410,6 +429,138 @@ def zillow_phase(tmp: str, total_calls: dict) -> None:
     os.remove(path)
 
 
+def close(a: float, b: float) -> bool:
+    return abs(a - b) <= REL_TOL * abs(b)
+
+
+def query_line(name: str, ctx, wall: float, loop_s: float) -> str:
+    """One run's times: collect() wall beside the plain loop's, and the
+    stages' split."""
+    m = ctx.metrics
+    first, agg = m.stages[0], m.stages[-1]
+    return (f"{name}: collect() {wall:.3f} s (python loop {loop_s:.3f} s); "
+            f"transform stage {first['wall_s']:.3f} s (fast path "
+            f"{first['fast_path_s']:.3f} s, {first['fetch_bytes']} bytes "
+            f"fetched, {first['fetched_row_columns']} row columns), "
+            f"aggregate stage {agg['wall_s']:.3f} s ({agg['device_rows']} "
+            f"rows on the card); outside the backend "
+            f"{wall - m.totalWallTime():.3f} s (sniff, CSV source, results "
+            f"to Python); interpreter rows {m.interpreterRows()}, rows "
+            f"folded on the host {m.hostFoldedRows()}")
+
+
+def tpch_phase(tmp: str, total_calls: dict) -> None:
+    """Q6 and Q1 on the card against the plain loops on the same file."""
+    path = os.path.join(tmp, "lineitem.csv")
+    t0 = time.perf_counter()
+    tpch.generate_csv(path, TPCH_ROWS, seed=TPCH_SEED)
+    print(f"tpch: generated {TPCH_ROWS} lineitem rows, "
+          f"{os.path.getsize(path)} bytes, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rows, read_s = timed(lambda: tpch.read_lineitem_csv(path))
+    want6, q6_s = timed(lambda: tpch.q6_python(rows))
+    want1, q1_s = timed(lambda: tpch.q1_python(rows))
+    del rows
+    for name, query in (("q6", tpch.q6), ("q1", tpch.q1)):
+        first = plan_stages(query(Context().csv(path))._op)[0]
+        parts, src_s = timed(first.source.load_partitions)
+        print(f"{name} CSV source: read, split and byte matrices of "
+              f"{len(first.source.schema().columns)} of 7 columns in "
+              f"{src_s:.3f} s -> {len(parts)} partitions")
+        del parts
+    q6_bits = set()
+    for run in (1, 2):
+        ctx = Context()
+        zero_native_calls()
+        t0 = time.perf_counter()
+        ds = tpch.q6(ctx.csv(path))
+        (got,) = ds.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        native_path_calls(total_calls, ("split_csv", "gather_rows"), "q6")
+        m = ctx.metrics
+        if not close(got, want6) or ds.exception_counts():
+            raise AssertionError(f"q6: {got!r} != python {want6!r}, "
+                                 f"exceptions {ds.exception_counts()}")
+        if m.stages[0]["tier"] != "compiled" or \
+                m.stages[0]["fetched_row_columns"] or m.interpreterRows() \
+                or m.hostFoldedRows():
+            raise AssertionError(f"q6: stage {m.stages[0]}, interpreter "
+                                 f"rows {m.interpreterRows()}, host-folded "
+                                 f"rows {m.hostFoldedRows()}")
+        q6_bits.add(got.hex())
+        print(query_line(f"q6 run {run}", ctx, wall, read_s + q6_s) +
+              f"; revenue {got!r} (python {want6!r})")
+    if len(q6_bits) != 1:
+        raise AssertionError(f"q6: two runs gave {q6_bits}")
+    wall, busy, _ = device_busy(lambda: tpch.q6(Context().csv(path))
+                                .collect())
+    print(f"q6 under torch.profiler: {wall:.3f} s, device busy {busy:.4f} "
+          f"s, idle share {1 - busy / wall:.4f}")
+    q1_bits = set()
+    for run in (1, 2):
+        ctx = Context()
+        t0 = time.perf_counter()
+        ds = tpch.q1(ctx.csv(path))
+        got = ds.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        keys = [r[:2] for r in got]
+        if keys != list(want1) or ds.exception_counts() or \
+                ctx.metrics.interpreterRows() or \
+                ctx.metrics.hostFoldedRows() or any(
+                    r[5] != want1[r[:2]][3] or
+                    not all(close(a, b) for a, b in
+                            zip(r[2:5], want1[r[:2]][:3])) for r in got):
+            raise AssertionError(f"q1: {got} != python {want1}")
+        q1_bits.add(repr([tuple(v.hex() if isinstance(v, float) else v
+                                for v in r) for r in got]))
+        print(query_line(f"q1 run {run}", ctx, wall, read_s + q1_s) +
+              f"; {len(got)} groups in first-occurrence order")
+    if len(q1_bits) != 1:
+        raise AssertionError("q1: the two runs differ")
+    os.remove(path)
+
+    dirty = os.path.join(tmp, "dirty.csv")
+    tpch.generate_dirty_csv(dirty, 2000, seed=TPCH_SEED)
+    rows = tpch.read_lineitem_dicts(dirty)
+    want, excs = tpch.q6_python_counting(rows)
+    ds = tpch.q6(Context().csv(dirty))
+    (got,) = ds.collect()
+    if not close(got, want) or ds.exception_counts() != excs:
+        raise AssertionError(f"dirty q6: {got}, {ds.exception_counts()} != "
+                             f"python {want}, {excs}")
+    want1, excs1 = tpch.q1_python_counting(rows)
+    ds = tpch.q1(Context().csv(dirty))
+    got1 = ds.collect()
+    if [r[:2] for r in got1] != list(want1) or \
+            ds.exception_counts() != excs1 or any(
+                r[5] != want1[r[:2]][3] or not all(
+                    close(a, b) for a, b in zip(r[2:5], want1[r[:2]][:3]))
+                for r in got1):
+        raise AssertionError(f"dirty q1: {got1}, {ds.exception_counts()} "
+                             f"!= python {want1}, {excs1}")
+    print(f"tpch dirty cells (2000 rows): q6 exceptions {excs}, q1 "
+          f"exceptions {excs1}, rows equal to the python loop's")
+    os.remove(dirty)
+
+
+def nyc311_phase(tmp: str) -> None:
+    path = os.path.join(tmp, "311.csv")
+    nyc311.generate_csv(path, NYC311_ROWS, seed=NYC311_SEED)
+    want, loop_s = timed(lambda: nyc311.run_reference_python(path))
+    ctx = Context()
+    t0 = time.perf_counter()
+    got = nyc311.build_pipeline(ctx, path).collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"nyc311: {got} != python {want}")
+    print(query_line(f"nyc311 ({NYC311_ROWS} rows -> {len(got)} distinct "
+                     f"zip codes)", ctx, wall, loop_s))
+    os.remove(path)
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
 
@@ -571,9 +722,13 @@ def main() -> None:
 
     # 6 --------------------------------------------------------------
     zillow_phase(tmp, total_calls)
-    os.rmdir(tmp)
 
     # 7 --------------------------------------------------------------
+    tpch_phase(tmp, total_calls)
+    nyc311_phase(tmp)
+    os.rmdir(tmp)
+
+    # 8 --------------------------------------------------------------
     zero_native_calls()
     native_check()
     for k, v in native.calls.items():

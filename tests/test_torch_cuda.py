@@ -1,6 +1,7 @@
 """tuplex_tpu_torch on the card: the CUDA NFA scan against its plain torch
-version, the string kernels on CUDA against the same kernels on the CPU,
-and the pipelines (smoke, log grep, Zillow Z1) through Context() on CUDA.
+version, the string kernels and the aggregate reductions on CUDA against
+the same ops on the CPU, and the pipelines (smoke, log grep, Zillow Z1,
+TPC-H Q6 and Q1, NYC 311) through Context() on CUDA.
 
 Every test here is marked `cuda` and skips without a GPU. This file
 imports neither jax nor tuplex_tpu, so it runs on a GPU host without them:
@@ -20,8 +21,9 @@ import pytest
 import torch
 
 import tuplex_tpu_torch
-from tuplex_tpu_torch.models import logs, zillow
+from tuplex_tpu_torch.models import logs, nyc311, tpch, zillow
 from tuplex_tpu_torch.ops import nfa as port_nfa
+from tuplex_tpu_torch.ops import fold as F
 from tuplex_tpu_torch.ops import nfa_cuda
 from tuplex_tpu_torch.ops import strings as S
 from tuplex_tpu_torch.runtime import columns as C
@@ -158,6 +160,11 @@ STRING_OPS = {
         "aaaa", b.shape[0], b.device)),
     "char_at": lambda b, l: S.char_at(b, l, torch.zeros_like(l)),
     "parse_i64": lambda b, l: S.parse_i64(b, l),
+    "parse_f64": lambda b, l: S.parse_f64(b, l),
+    "compare_lt": lambda b, l: S.compare_lt(b, l, b.flip(0), l.flip(0)),
+    "compare_le-const": lambda b, l: S.compare_lt(
+        b, l, *S.broadcast_const("abab", b.shape[0], b.device),
+        or_equal=True),
     "parse_i64-wide": lambda b, l: S.parse_i64(
         torch.nn.functional.pad(b, (0, 40)), l),
     "format_i64": lambda b, l: S.format_i64(
@@ -193,3 +200,93 @@ def test_zillow_on_cuda(tmp_path, cuda_device):
                                      "AttributeError": 34}
     assert ctx.metrics.stages[-1]["tier"] == "compiled"
     assert ctx.metrics.interpreterRows() == 109
+
+
+F64_ROWS = ["17.0", "0.05", "-0.0", ".5", "5.", " 2.5 ", "1e22", "1e23",
+            "1e-22", "9007199254740993", "123.456", "nan", "1_0", "e5",
+            "0e999", "45678.91", "\u0663", "1" * 40]
+
+
+@pytest.mark.cuda
+def test_parse_f64_cuda_matches_cpu_bits(cuda_device):
+    rng = np.random.default_rng(9)
+    rows = F64_ROWS + ["%.*f" % (int(rng.integers(0, 9)), v) for v in
+                       rng.uniform(-1e6, 1e6, 20_000)]
+    leaf = C.encode_str_leaf(rows, False)
+    b = torch.from_numpy(np.ascontiguousarray(leaf.bytes))
+    l = torch.from_numpy(leaf.lengths)
+    want = S.parse_f64(b, l)
+    got = S.parse_f64(b.to(cuda_device), l.to(cuda_device))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8))
+
+
+def _fold_inputs(seed: int, n: int, nkeys: int):
+    rng = np.random.default_rng(seed)
+    keys = C.encode_str_leaf(["k%d" % v for v in rng.integers(0, nkeys, n)],
+                             True)
+    keys.valid = rng.random(n) > 0.05
+    vals = torch.from_numpy(rng.uniform(-1e5, 1e5, n))
+    ints = torch.from_numpy(rng.integers(-10 ** 6, 10 ** 6, n))
+    return keys, vals, ints
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nkeys", [(1, 1), (1000, 3), (100_003, 6),
+                                     (50_000, 20_000)])
+def test_fold_reductions_cuda_match_cpu(n, nkeys, cuda_device):
+    """Key factorization, tree and segmented reductions: the same codes
+    and the same bits on the card as on the CPU, and on the card the same
+    bits run to run."""
+    from tuplex_tpu_torch.compiler.values import CV
+    from tuplex_tpu_torch.core import typesys as T
+
+    keys, vals, ints = _fold_inputs(7, n, nkeys)
+    ok = torch.from_numpy(np.random.default_rng(8).random(n) > 0.1)
+
+    def run(dev):
+        cv = CV(t=T.option(T.STR), sbytes=torch.from_numpy(
+            keys.bytes.copy()).to(dev), slen=torch.from_numpy(
+            keys.lengths).to(dev), valid=torch.from_numpy(keys.valid).to(dev))
+        sig = F.signature([cv], n, dev)
+        codes, first = F.factorize(sig, ok.to(dev))
+        sel = codes >= 0
+        nseg = first.shape[0]
+        out = [codes.cpu(), first.cpu()]
+        for x in (vals.to(dev), ints.to(dev)):
+            for red in ("sum", "min", "max"):
+                out.append(F.segment_reduce(x[sel], codes[sel], nseg,
+                                            red).cpu())
+                out.append(F.tree_reduce(torch.where(
+                    ok.to(dev), x, x.new_zeros(())), red).cpu())
+        return out
+
+    want = run(torch.device("cpu"))
+    got = run(cuda_device)
+    again = run(cuda_device)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, g)
+
+
+@pytest.mark.cuda
+def test_tpch_and_nyc311_on_cuda(tmp_path, cuda_device):
+    li = str(tmp_path / "li.csv")
+    tpch.generate_csv(li, 3000, seed=8)
+    ctx = tuplex_tpu_torch.Context()
+    (q6,) = tpch.q6(ctx.csv(li)).collect()
+    want = tpch.run_reference_q6(li)
+    assert abs(q6 - want) <= 1e-9 * abs(want)
+    assert ctx.metrics.stages[0]["fetched_row_columns"] == 0
+    assert ctx.metrics.interpreterRows() == 0
+    assert ctx.metrics.hostFoldedRows() == 0
+    q1 = tpch.q1(tuplex_tpu_torch.Context().csv(li)).collect()
+    want = tpch.run_reference_q1(li)
+    assert [r[:2] for r in q1] == list(want)
+    for r in q1:
+        w = want[r[:2]]
+        assert r[5] == w[3] and all(abs(a - b) <= 1e-9 * abs(b)
+                                    for a, b in zip(r[2:5], w[:3]))
+    path = str(tmp_path / "311.csv")
+    nyc311.generate_csv(path, 3000, seed=23)
+    assert nyc311.build_pipeline(tuplex_tpu_torch.Context(), path) \
+        .collect() == nyc311.run_reference_python(path)

@@ -1,14 +1,16 @@
 """Public DataSet — lazy operator-graph builder (counterpart of
-`tuplex_tpu/api/dataset.py`; reference: python/tuplex/dataset.py — map:49,
-filter:83, withColumn/mapColumn/selectColumns, collect:113,
-exception_counts:707). Every method returns a NEW
-DataSet over a new logical operator; nothing executes until collect()."""
+`tuplex_tpu/api/dataset.py`; reference: python/tuplex/dataset.py — unique:36,
+map:49, filter:83, withColumn/mapColumn/selectColumns, collect:113,
+columns:365, types:375, aggregate:593, aggregateByKey:644,
+exception_counts:707). Every method returns a NEW DataSet over a new
+logical operator; nothing executes until collect()."""
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 from ..core import typesys as T
+from ..plan import aggregates as A
 from ..plan import logical as L
 from ..plan.physical import plan_stages
 from ..runtime import columns as C
@@ -40,18 +42,54 @@ class DataSet:
         return DataSet(self._context,
                        L.SelectColumnsOperator(self._op, columns))
 
+    def unique(self) -> "DataSet":
+        """Distinct rows, in the order of their first occurrence."""
+        return DataSet(self._context, A.UniqueOperator(self._op))
+
+    def aggregate(self, combine: Callable, aggregate: Callable,
+                  initial_value: Any) -> "DataSet":
+        """One row: `initial_value` with every row folded in by
+        aggregate(acc, row); combine(acc, acc) must be associative."""
+        return DataSet(self._context, A.AggregateOperator(
+            self._op, combine, aggregate, initial_value))
+
+    def aggregateByKey(self, combine: Callable, aggregate: Callable,
+                       initial_value: Any,
+                       key_columns: Sequence[str]) -> "DataSet":
+        """One row per distinct key: the key columns, then the key's
+        accumulator, in the order the keys first folded."""
+        return DataSet(self._context, A.AggregateByKeyOperator(
+            self._op, combine, aggregate, initial_value, key_columns))
+
+    # -- metadata -----------------------------------------------------------
+    @property
+    def columns(self) -> Optional[list[str]]:
+        cols = self._op.columns()
+        return list(cols) if cols else None
+
+    @property
+    def types(self) -> list:
+        return list(self._op.schema().types)
+
+    @property
+    def schema(self) -> T.RowType:
+        return self._op.schema()
+
+    # -- actions ------------------------------------------------------------
     def collect(self) -> list:
-        out = []
+        """Run the plan's stages in order, each over the partitions the one
+        before it returned (the first over its source's)."""
         exceptions = []
+        parts = None
         for stage in plan_stages(self._op):
-            res = self._context.backend.execute(
-                stage, _source_partitions(self._context, stage.source))
+            if parts is None:
+                parts = _source_partitions(self._context, stage.source)
+            res = self._context.backend.execute(stage, parts)
             self._context.metrics.record_stage(res.metrics)
             exceptions.extend(res.exceptions)
-            for p in res.partitions:
-                out.extend(C.partition_to_pylist(p))
+            parts = res.partitions
         self._last_exceptions = exceptions
-        return out
+        return [v for p in parts for v in C.partition_to_pylist(p)]
 
     def exception_counts(self) -> dict[str, int]:
         """Counts of unresolved exceptions from the LAST collect() on this

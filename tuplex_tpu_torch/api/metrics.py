@@ -30,9 +30,16 @@ class Metrics:
         return float(self._sum("wall_s"))
 
     def interpreterRows(self) -> int:
-        """Rows the interpreter ran: input rows outside the normal case plus
-        rows whose device error code was set."""
+        """Rows the interpreter ran through a transform stage: input rows
+        outside the normal case plus rows whose device error code was
+        set."""
         return int(self._sum("interpreter_rows"))
+
+    def hostFoldedRows(self) -> int:
+        """Rows the aggregate stages folded or deduplicated on the host
+        instead of the device (the rows of an interpreted transform are
+        interpreterRows)."""
+        return int(self._sum("host_folded_rows"))
 
     def deviceErrorRows(self) -> int:
         """Rows the compiled path flagged with an error code."""

@@ -17,7 +17,8 @@ Supported: lambdas and functions with assignments, augmented assignments,
 if/elif/else, conditional expressions and returns anywhere; names,
 constants, + - * / // % and unary minus/not; `and`/`or` with Python's value
 and short-circuit semantics; chained comparisons (int against float
-exactly as Python compares them, str ==/!=, Option == None); `in` on
+exactly as Python compares them, str ==/!= and code-point ordering,
+Option == None); `in` on
 strings and constant tuples; None and Option values; tuples, tuple and
 named-row indexing; string indexing and slicing, `len`, concatenation,
 `'%0Nd' % i`, `int()`; `str.find`/`rfind`/`index`/`rindex` with a constant
@@ -567,7 +568,7 @@ class Frame:
         a_str, b_str = _is_str(a), _is_str(b)
         if a_str or b_str:
             if not eq_op:
-                raise NotCompilable("string ordering comparison")
+                return self._str_order(op, a, b)
             if a_str and b_str:
                 # None == "x" is False, not an error: Option rows stay
                 raw = S.equals(*self._str_payload(a), *self._str_payload(b))
@@ -587,6 +588,22 @@ class Frame:
         if type(op) not in _CMP_FN:
             raise NotCompilable(f"comparison {type(op).__name__}")
         return _num_cmp(type(op), an, bn)
+
+    def _str_order(self, op: ast.cmpop, a: CV, b: CV) -> torch.Tensor:
+        """<, <=, >, >= between strings, in code-point order. A None operand
+        raises TypeError, as does a string against a non-string."""
+        if type(op) not in _CMP_FN:
+            raise NotCompilable(f"comparison {type(op).__name__}")
+        if not (_is_str(a) or a.t is T.NULL) or \
+                not (_is_str(b) or b.t is T.NULL):
+            self.raise_where(self.ctx.ones(), ExceptionCode.TYPEERROR)
+            return self.ctx.zeros()
+        ab, al = self._to_strpair(a)
+        bb, bl = self._to_strpair(b)
+        if isinstance(op, (ast.Gt, ast.GtE)):
+            ab, al, bb, bl = bb, bl, ab, al
+        return S.compare_lt(ab, al, bb, bl,
+                            or_equal=isinstance(op, (ast.LtE, ast.GtE)))
 
     def _option_eq(self, a: CV, b: CV, raw_eq: torch.Tensor,
                    op: ast.cmpop) -> torch.Tensor:

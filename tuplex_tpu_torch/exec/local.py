@@ -12,7 +12,10 @@ Per partition:
     (reference: ResolveTask.cc:238-283 merge-in-order)
 
 Device work is queued without waiting: up to `_WINDOW` partitions are in
-flight while the host merges an earlier one. The reference package's
+flight while the host merges an earlier one. A stage that runs a fused
+whole-dataset fold fetches the fold's partials and per-row flags, not its
+rows (exec/aggexec.py `FoldPartial`); an AggregateStage runs on the
+AggregateExecutor. The reference package's
 compiled general-case tier and exact-exception exit need its plan-time
 exception inventory and are not ported: every device-error row goes to the
 interpreter, which produces the same rows and exception records.
@@ -31,7 +34,8 @@ import torch
 from ..core import typesys as T
 from ..core.errors import NotCompilable
 from ..core.row import Row
-from ..plan.physical import TransformStage, runtime_output_columns
+from ..plan.physical import (AggregateStage, TransformStage,
+                             runtime_output_columns)
 from ..runtime import columns as C
 
 _WINDOW = 2   # partitions dispatched ahead of the one being merged
@@ -58,12 +62,14 @@ class LocalBackend:
     def __init__(self, device: torch.device):
         self.device = device
 
-    def execute(self, stage: TransformStage, partitions) -> StageResult:
+    def execute(self, stage, partitions) -> StageResult:
+        if isinstance(stage, AggregateStage):
+            from .aggexec import AggregateExecutor
+
+            return AggregateExecutor(self).execute(stage, partitions)
         t0 = time.perf_counter()
-        metrics: dict[str, Any] = {"fast_path_s": 0.0, "slow_path_s": 0.0,
-                                   "interpreter_rows": 0,
-                                   "device_error_rows": 0}
-        out_parts: list[C.Partition] = []
+        metrics: dict[str, Any] = {k: 0 for k in _SUMMED}
+        out_parts: list = []
         exceptions: list[ExceptionRecord] = []
         window: deque = deque()
 
@@ -71,8 +77,7 @@ class LocalBackend:
             part, outs, dispatch_s = window.popleft()
             outp, excs, m = self._collect_partition(stage, part, outs,
                                                     dispatch_s)
-            for k in ("fast_path_s", "slow_path_s", "interpreter_rows",
-                      "device_error_rows"):
+            for k in _SUMMED:
                 metrics[k] += m.get(k, 0)
             exceptions.extend(excs)
             out_parts.append(outp)
@@ -91,7 +96,8 @@ class LocalBackend:
 
     # ------------------------------------------------------------------
     def _dispatch_partition(self, part: C.Partition, stage: TransformStage,
-                            compaction: Optional[bool] = None):
+                            compaction: Optional[bool] = None,
+                            fold: bool = True):
         """Stage the batch and queue the stage function's device work
         without waiting for it. Returns (part, outs | None, seconds)."""
         if stage.not_compilable or part.n_normal() == 0:
@@ -101,8 +107,8 @@ class LocalBackend:
         t0 = time.perf_counter()
         batch = C.stage_partition(part, self.device)
         try:
-            outs = stage.build_device_fn(part.schema,
-                                         compaction=compaction)(batch.arrays)
+            outs = stage.build_device_fn(part.schema, compaction=compaction,
+                                         fold=fold)(batch.arrays)
         except NotCompilable:
             stage.not_compilable = True
             return (part, None, time.perf_counter() - t0)
@@ -117,21 +123,36 @@ class LocalBackend:
         compiled_ok = np.zeros(n, dtype=np.bool_)
         out_arrays: dict[str, np.ndarray] = {}
         src_map = None
+        fold = None
         t0 = time.perf_counter()
         if outs is not None:
-            host = {k: v.cpu().numpy() for k, v in outs.items()}
-            rowidx = host.pop("#rowidx", None)
-            ovf = host.pop("#overflow", None)
-            if rowidx is not None and bool(ovf):
-                # the sample under-estimated this filter's survivors and the
-                # compaction bucket overflowed: results are unusable. Re-run
-                # without compaction and keep it off for the stage.
-                stage.compaction_off = True
+            host = self._fetch(outs, metrics)
+            fold_on = True
+            while True:
+                rowidx = host.pop("#rowidx", None)
+                ovf = host.pop("#overflow", None)
+                if rowidx is not None and bool(ovf):
+                    # the sample under-estimated this filter's survivors and
+                    # the compaction bucket overflowed: results are
+                    # unusable. Re-run without compaction and keep it off
+                    # for the stage.
+                    stage.compaction_off = True
+                elif "#foldcnt" in host and _fold_in_order(stage, part,
+                                                           host):
+                    # the partition folds in row order on the host: fetch
+                    # its rows (the fold is off for this pass only)
+                    fold_on = False
+                else:
+                    break
                 _, outs2, d2 = self._dispatch_partition(part, stage,
-                                                        compaction=False)
+                                                        fold=fold_on)
                 dispatch_s += d2
-                host = {k: v.cpu().numpy() for k, v in outs2.items()}
-                rowidx = None
+                host = self._fetch(outs2, metrics)
+            if "#foldcnt" in host:
+                fold = ([host.pop(f"#fold{i}").item() for i in
+                         range(len(stage.fold_spec.reducers))],
+                        int(host.pop("#foldcnt")), host.pop("#foldok")[:n])
+                host.pop("#foldrisk")
             if rowidx is not None:
                 # original row i -> compact slot j (compaction keeps the
                 # ascending original order)
@@ -147,6 +168,11 @@ class LocalBackend:
             metrics["device_error_rows"] = len(err_idx)
             compiled_ok = rowvalid & keep & (err == 0)
             out_arrays = host
+            if fold is not None:
+                # rows whose fold expression raised re-run on the
+                # interpreter, and their output rows fold on the host
+                fallback_idx.update(np.nonzero(compiled_ok & ~fold[2])[0]
+                                    .tolist())
         else:
             fallback_idx.update(range(n))
         metrics["fast_path_s"] = dispatch_s + time.perf_counter() - t0
@@ -167,9 +193,36 @@ class LocalBackend:
             metrics["interpreter_rows"] = len(order)
         exceptions = [exc_by_row[i] for i in sorted(exc_by_row)]
         metrics["slow_path_s"] = time.perf_counter() - t0
-        outp = self._merge(stage, part, compiled_ok, out_arrays, resolved,
-                           src_map)
-        return outp, exceptions, metrics
+        if stage.fold_spec is None:
+            return self._merge(stage, part, compiled_ok, out_arrays,
+                               resolved, src_map), exceptions, metrics
+        # a fused fold returns a FoldPartial: its partials and the rows the
+        # host folds after them, or, when the fold did not run on the
+        # device, every output row of the partition, in order
+        from .aggexec import FoldPartial
+
+        if fold is not None:
+            rows = [resolved[i] for i in sorted(resolved)]
+            return FoldPartial(fold[0], fold[1], rows), exceptions, metrics
+        if outs is None:
+            rows = [resolved[i] for i in sorted(resolved)]
+        else:
+            outp = self._merge(stage, part, compiled_ok, out_arrays,
+                               resolved, src_map)
+            rows = list(C.decode_rows(outp, range(outp.num_rows)))
+        return FoldPartial([], 0, rows), exceptions, metrics
+
+    @staticmethod
+    def _fetch(outs: dict, metrics: dict) -> dict:
+        """The stage outputs on the host; counts the bytes and the row
+        columns (outputs that are not '#' flags or partials) fetched."""
+        host = {k: v.cpu().numpy() for k, v in outs.items()}
+        metrics["fetch_bytes"] = metrics.get("fetch_bytes", 0) + sum(
+            a.nbytes for a in host.values())
+        metrics["fetched_row_columns"] = metrics.get(
+            "fetched_row_columns", 0) + sum(not k.startswith("#")
+                                            for k in host)
+        return host
 
     def _merge(self, stage: TransformStage, part: C.Partition,
                compiled_ok: np.ndarray, out_arrays: dict,
@@ -217,6 +270,21 @@ class LocalBackend:
             outp.normal_mask = normal_mask
             outp.fallback = fallback
         return outp
+
+
+_SUMMED = ("fast_path_s", "slow_path_s", "interpreter_rows",
+           "device_error_rows", "fetch_bytes", "fetched_row_columns")
+
+
+def _fold_in_order(stage: TransformStage, part: C.Partition,
+                   host: dict) -> bool:
+    """FoldSpec.in_order for a fused fold's partition: its rows apart
+    from the partials are boxed rows, rows the device flagged and rows
+    whose fold expression raised."""
+    n = part.num_rows
+    apart = bool(part.fallback) or bool((host["#err"][:n] != 0).any()) or \
+        bool((host["#keep"][:n] & ~host["#foldok"][:n]).any())
+    return stage.fold_spec.in_order(bool(host["#foldrisk"]), apart)
 
 
 def _schema_from_rows(rows: list[Row]) -> Optional[T.RowType]:

@@ -282,25 +282,34 @@ class CSVStatistic:
 class CSVSourceOperator(L.LogicalOperator):
     """Raw-cell CSV source: every column is Option[str] (a missing cell of
     a malformed record is None). The typed decode is the DecodeOperator
-    above it, fused into the stage."""
+    above it, fused into the stage. `columns` (positions in the file, in
+    order) restricts the source to the columns a plan reads."""
 
     def __init__(self, options, pattern: str, stat: CSVStatistic,
-                 files: list[str]):
+                 files: list[str], columns: Optional[list[int]] = None):
         super().__init__([])
         self.options = options
         self.pattern = pattern
         self.stat = stat
         self.files = files
-        self._raw_schema = T.row_of(
-            stat.columns, [T.option(T.STR)] * stat.num_columns)
+        self.keep = list(range(stat.num_columns)) if columns is None \
+            else list(columns)
+        self._raw_schema = T.row_of([stat.columns[i] for i in self.keep],
+                                    [T.option(T.STR)] * len(self.keep))
+
+    def project(self, columns: list[int]) -> "CSVSourceOperator":
+        """A copy of this source that reads only `columns` of its own."""
+        return CSVSourceOperator(self.options, self.pattern, self.stat,
+                                 self.files, [self.keep[i] for i in columns])
 
     def schema(self) -> T.RowType:
         return self._raw_schema
 
     def sample(self) -> list[Row]:
         k = self.stat.num_columns
-        return [Row(list(r[:k]) + [None] * max(0, k - len(r)),
-                    self.stat.columns) for r in self.stat.sample_rows]
+        return [Row([r[i] if i < len(r) else None for i in self.keep],
+                    self._raw_schema.columns)
+                for r in (r[:k] for r in self.stat.sample_rows)]
 
     def load_partitions(self) -> list[C.Partition]:
         parts: list[C.Partition] = []
@@ -308,7 +317,8 @@ class CSVSourceOperator(L.LogicalOperator):
         for path in self.files:
             with VirtualFileSystem.open_read(path, "rb") as fp:
                 data = fp.read()
-            for p in csv_partitions(data, self.stat, self.options, offset):
+            for p in csv_partitions(data, self.stat, self.options, offset,
+                                    self.keep):
                 parts.append(p)
                 offset += p.num_rows
         return parts
@@ -339,8 +349,9 @@ def _decoded_schema(stat: CSVStatistic) -> T.RowType:
 # ---------------------------------------------------------------------------
 
 def csv_partitions(data: bytes, stat: CSVStatistic, options,
-                   base_index: int = 0):
-    """Partitions of raw cells over one file's bytes, in file order.
+                   base_index: int = 0, columns: Optional[list] = None):
+    """Partitions of raw cells over one file's bytes, in file order, of
+    the file's `columns` (positions, all of them when None).
 
     Records whose quotes are all whole-field quoting ("a,b" as one field)
     take the fast path: the native module's one-pass splitter (or
@@ -352,6 +363,7 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
     slot as boxed rows for the interpreter, as the reference package's
     malformed rows do."""
     k = stat.num_columns
+    cols = list(range(k)) if columns is None else list(columns)
     max_w = options.get_int("tuplex.tpu.maxStrBytes", 4096)
     if not data:
         return
@@ -359,6 +371,8 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
     split = native.split_csv if use_native else _split_records
     starts, ends, good, fstart, flen = split(
         data, ord(stat.delimiter), ord(stat.quotechar), k, stat.has_header)
+    if len(cols) < k:
+        fstart, flen = fstart[:, cols], flen[:, cols]
     too_wide = (flen > max_w).any(axis=1)
     if too_wide.any():
         good[np.flatnonzero(good)[too_wide]] = False
@@ -377,7 +391,7 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
         for cells in records:
             if cells:
                 boxed.append((r, tuple(cells[i] if i < len(cells) else None
-                                       for i in range(k))))
+                                       for i in cols)))
     # output slots: fast records and boxed rows interleaved in file order
     n_fast = len(fstart)
     slot_rec = np.concatenate([np.nonzero(good)[0],
@@ -388,7 +402,8 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
     slot_of[order] = np.arange(total)
     fast_slot = slot_of[:n_fast]
     boxed_slot = slot_of[n_fast:]
-    schema = T.row_of(stat.columns, [T.option(T.STR)] * k)
+    schema = T.row_of([stat.columns[i] for i in cols],
+                      [T.option(T.STR)] * len(cols))
     if not use_native:
         # room for a full-width window at the last field
         padded = np.concatenate([np.frombuffer(data, np.uint8),
@@ -409,7 +424,7 @@ def csv_partitions(data: bytes, stat: CSVStatistic, options,
         else:
             leaves = {str(ci): _column_leaf(padded, fstart[f0:f1, ci],
                                             flen[f0:f1, ci], pos, m)
-                      for ci in range(k)}
+                      for ci in range(len(cols))}
         part = C.Partition(schema=schema, num_rows=m, leaves=leaves,
                            start_index=base_index + start)
         b0, b1 = np.searchsorted(boxed_slot, [start, start + m])

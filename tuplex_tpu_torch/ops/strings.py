@@ -280,6 +280,32 @@ def equals(a_bytes, a_lens, b_bytes, b_lens):
     return same & (a_lens == b_lens)
 
 
+def compare_lt(a_bytes, a_lens, b_bytes, b_lens, or_equal: bool = False):
+    """a < b (a <= b with `or_equal`), byte-lexicographic over UTF-8, which
+    is Python's code-point order for valid UTF-8: the first differing byte
+    decides, else the shorter string is the smaller. Bytes past each length
+    are masked, so a string that is a prefix of the other compares by
+    length."""
+    w = max(a_bytes.shape[1], b_bytes.shape[1])
+    a, b = _pad_width(a_bytes, w), _pad_width(b_bytes, w)
+    pos = torch.arange(w, dtype=I32, device=a.device)[None, :]
+    a = torch.where(pos < a_lens[:, None], a, 0)
+    b = torch.where(pos < b_lens[:, None], b, 0)
+    first = torch.where(a != b, pos, w).min(dim=1).values
+    no_diff = first >= w
+    at = torch.clamp(first, max=w - 1)[:, None].to(torch.int64)
+    lt = torch.where(no_diff, a_lens < b_lens,
+                     torch.gather(a, 1, at)[:, 0] < torch.gather(b, 1, at)[:, 0])
+    if or_equal:
+        return lt | (no_diff & (a_lens == b_lens))
+    return lt
+
+
+def _pad_width(a, w: int):
+    return a if a.shape[1] >= w else \
+        torch.nn.functional.pad(a, (0, w - a.shape[1]))
+
+
 # ---------------------------------------------------------------------------
 # parse / format
 # ---------------------------------------------------------------------------
@@ -427,3 +453,102 @@ def format_i64(vals, width: int = 0, pad_zero: bool = False):
     out = torch.where((pos == 0) & neg[:, None], 45, out)
     out = torch.where(pos < out_len[:, None], out, 0)
     return out.to(U8), out_len
+
+
+# exact doubles: 10**k for k <= 22 (the Clinger fast path's range)
+_P10F = np.array([10.0 ** k for k in range(23)], dtype=np.float64)
+_TWO53 = 1 << 53
+
+
+def parse_f64(bytes_, lens):
+    """float(s) semantics: optional surrounding whitespace, optional sign,
+    digits with at most one '.', an optional exponent. Returns (val float64
+    [N], bad bool [N], route bool [N]). `bad` rows raise ValueError in
+    CPython. `route` rows are valid for CPython, or may be, but outside
+    this kernel, and resolve on the interpreter: 'inf'/'infinity'/'nan'
+    words, PEP 515 underscores, non-ASCII bytes, spans wider than the parse
+    window, and every value outside the exact fast path below. So every
+    value returned equals CPython's float() bit for bit."""
+    return _narrowed_parse(_parse_f64_core, bytes_, lens)
+
+
+def _parse_f64_core(sb, sl):
+    """The value is one correctly rounded multiply or divide: an integer
+    mantissa below 2**53 is exact in float64, as is 10**|e| for |e| <= 22
+    (Clinger's fast path, the one strtod takes for such inputs). A zero
+    mantissa is a signed zero for any exponent. Mantissas of 2**53 or more,
+    or with a nonzero digit past the 16th place, and exponents beyond the
+    range route; the powers come from an exact table, never `pow`."""
+    n, w = sb.shape
+    dev = sb.device
+    pos = torch.arange(w, dtype=I32, device=dev)[None, :]
+    inside = pos < sl[:, None]
+    first = sb[:, 0]
+    neg = first == 45
+    b0 = ((first == 43) | neg).to(I32)
+    digit = (sb >= 48) & (sb <= 57)
+    big = w + 1
+    e_pos = torch.where(inside & ((sb == 101) | (sb == 69)), pos,
+                        big).min(dim=1).values
+    has_e = e_pos < big
+    mant_end = torch.where(has_e, e_pos, sl)
+    in_mant = inside & (pos >= b0[:, None]) & (pos < mant_end[:, None])
+    dot = in_mant & (sb == 46)
+    n_dot = dot.sum(dim=1)
+    dot_pos = torch.where(dot, pos, big).min(dim=1).values
+    mdig = in_mant & digit
+    n_mdig = mdig.sum(dim=1)
+    valid = ~(in_mant & ~digit & ~dot).any(dim=1) & (n_dot <= 1) \
+        & (n_mdig > 0)
+    # the exponent: [+-] and at least one digit, nothing else
+    es = torch.clamp(e_pos + 1, max=w - 1)
+    ech = torch.gather(sb, 1, es[:, None].to(torch.int64))[:, 0]
+    e_sign = has_e & (e_pos + 1 < sl) & ((ech == 43) | (ech == 45))
+    e_neg = e_sign & (ech == 45)
+    in_exp = has_e[:, None] & inside & \
+        (pos >= (e_pos + 1 + e_sign.to(I32))[:, None])
+    edig = in_exp & digit
+    valid = valid & ~(has_e & ((in_exp & ~digit).any(dim=1)
+                               | (edig.sum(dim=1) == 0)))
+    # digit weights: the count of digits after each one in its part. A
+    # valid mantissa is digits and at most one dot, an exponent digits
+    # only, so that count follows from positions (no scan)
+    d = sb.to(torch.int64) - 48
+    p10 = _on(dev, "p10", _P10)
+    m_exp = mant_end[:, None] - 1 - pos - (
+        (n_dot > 0)[:, None] & (dot_pos[:, None] > pos)).to(I32)
+    mant = torch.where(mdig & (m_exp <= 15),
+                       d * p10[torch.clamp(m_exp, 0, 15).to(torch.int64)],
+                       0).sum(dim=1)
+    wide_mant = (mdig & (d != 0) & (m_exp > 15)).any(dim=1)
+    x_exp = sl[:, None] - 1 - pos
+    e_val = torch.where(edig & (x_exp <= 4),
+                        d * p10[torch.clamp(x_exp, 0, 4).to(torch.int64)],
+                        0).sum(dim=1)
+    wide_exp = (edig & (d != 0) & (x_exp > 4)).any(dim=1)
+    n_frac = torch.where(n_dot > 0, mant_end - dot_pos - 1, 0)
+    e = torch.where(e_neg, -e_val, e_val) - n_frac
+    zero = mant == 0
+    fast = ~wide_mant & ~wide_exp & (mant < _TWO53) & (e.abs() <= 22)
+    mf = mant.to(torch.float64)
+    pw = _on(dev, "p10f", _P10F)[torch.clamp(e.abs(), 0, 22)]
+    val = torch.where(e >= 0, mf * pw, mf / pw)
+    val = torch.where(zero, 0.0, val)
+    val = torch.where(neg, -val, val)
+    # words and bytes this kernel does not read: CPython decides
+    outside = (inside & ((sb == 95) | (sb >= 128))).any(dim=1)
+    words = _word_at(sb, sl, b0, "inf") | _word_at(sb, sl, b0, "infinity") \
+        | _word_at(sb, sl, b0, "nan")
+    route = outside | words | (valid & ~zero & ~fast)
+    bad = ~valid & ~outside & ~words
+    return val, bad, route
+
+
+def _word_at(sb, sl, b0, word: str):
+    """Rows whose text after the sign is `word`, in any case."""
+    n, w = sb.shape
+    k = len(word)
+    idx = b0[:, None] + torch.arange(k, dtype=I32, device=sb.device)[None, :]
+    ch = torch.gather(sb, 1, torch.clamp(idx, 0, w - 1).to(torch.int64))
+    want = _on(sb.device, "word:" + word, const_bytes(word).copy())
+    return ((sl - b0) == k) & ((ch | 32) == want[None, :]).all(dim=1)

@@ -1,6 +1,7 @@
 """Logical operator DAG (counterpart of `tuplex_tpu/plan/logical.py`, the
 operators this package supports: parallelize, map, filter, withColumn,
-mapColumn, selectColumns and the CSV cell decode).
+mapColumn, selectColumns and the CSV cell decode; the aggregates are in
+plan/aggregates.py).
 
 Schema inference IS the sample tracer: operators run their UDF on the
 parent's sample rows via CPython and speculate the normal-case output type
@@ -50,6 +51,11 @@ class LogicalOperator:
 
     def schema(self) -> T.RowType:
         raise NotImplementedError
+
+    def is_breaker(self) -> bool:
+        """Whether the operator ends a stage: it needs every row of its
+        input before it emits one (the aggregates)."""
+        return False
 
     def columns(self) -> Optional[tuple[str, ...]]:
         from ..runtime.columns import user_columns

@@ -3,10 +3,11 @@ of `tuplex_tpu/plan/physical.py`).
 
 A TransformStage turns into ONE Python function over a staged column batch:
 every fused operator contributes torch ops in order (reference:
-StageBuilder.cc fuses a stage's operators into one compiled function).
-None of this package's operators breaks a pipeline, so a plan is a single
-stage over its source. A CSV source's cell decode is the stage's first
-operator: cells parse to their speculated types on the device.
+StageBuilder.cc fuses a stage's operators into one compiled function). The
+aggregates break the pipeline: a plan is a chain of TransformStages and
+AggregateStages. A CSV source's cell decode is the first stage's first
+operator: cells parse to their speculated types on the device, and only
+the columns the plan reads are split out of the file.
 
 Selective filters may be followed by selection-vector compaction: live rows
 move to the front of a smaller batch so later operators touch fewer rows.
@@ -35,20 +36,28 @@ from . import logical as L
 
 
 class TransformStage:
-    """A fused chain of row operators over one input source."""
+    """A fused chain of row operators over one input: a source operator,
+    or the breaker whose stage runs before it."""
 
     not_compilable = False   # set by the backend when the emitter rejects
                              # a fused UDF: every row then interprets
     compaction_off = False   # set when a compaction bucket overflowed
+    fold_spec = None         # the FoldSpec of a whole-dataset aggregate
+                             # whose fold runs in this stage's device pass
+    fold_failed = False      # set when the fold is outside the compiled
+                             # subset: the stage then returns its rows
 
     def __init__(self, source: L.LogicalOperator, ops: list):
         self.source = source
         self.ops = ops
-        self.input_schema = source.schema()
-        last = ops[-1] if ops else source
+        self._relink_schemas()
+        self._py_pipeline = None
+
+    def _relink_schemas(self) -> None:
+        self.input_schema = self.source.schema()
+        last = self.ops[-1] if self.ops else self.source
         self.output_schema = last.schema()
         self.output_columns = last.columns()
-        self._py_pipeline = None
 
     def python_pipeline(self):
         """The stage's interpreter pipeline, built once."""
@@ -57,7 +66,8 @@ class TransformStage:
         return self._py_pipeline
 
     def build_device_fn(self, input_schema: Optional[T.RowType] = None,
-                        compaction: bool = False) -> Callable:
+                        compaction: bool = False,
+                        fold: bool = True) -> Callable:
         """The fused fast-path function: staged tensors -> output tensors +
         '#err' + '#keep'. Raises NotCompilable (when called) if a fused UDF
         is outside the compiled subset; the backend then interprets every
@@ -67,11 +77,17 @@ class TransformStage:
         selective filters. Outputs then gain '#rowidx' ([B'] original
         positions, ascending; sentinel = padded input size for dead slots)
         and '#overflow' (survivors exceeded the sample-estimated bucket: the
-        host must discard the results and re-run without compaction)."""
+        host must discard the results and re-run without compaction).
+
+        With `fold` and a fused `fold_spec`, the outputs are not the rows but
+        the fold's partials (`_emit_fused_fold`) beside '#err' and '#keep'.
+        A fold expression outside the compiled subset sets `fold_failed`
+        and the stage returns its rows instead."""
         schema = input_schema if input_schema is not None \
             else self.input_schema
         ops = self.ops
         plan = _compaction_plan(ops) if compaction else {}
+        spec = self.fold_spec if fold and not self.fold_failed else None
 
         def fn(arrays: dict) -> dict:
             rowvalid = arrays["#rowvalid"]
@@ -94,21 +110,102 @@ class TransformStage:
                          overflow) = _compact_rows(ctx, row, keep, rowidx,
                                                    full_err, overflow, b2, b)
                         bcur = b2
-            outs = result_arrays(row, bcur, ctx.device)
             fin = keep & (ctx.err == 0)
+            outs = None
+            if spec is not None:
+                try:
+                    outs = _emit_fused_fold(spec, row, fin, bcur,
+                                            ctx.device)
+                except NotCompilable:
+                    self.fold_failed = True
+            if outs is None:
+                outs = result_arrays(row, bcur, ctx.device)
             if rowidx is None:
                 outs["#err"] = ctx.err
                 outs["#keep"] = fin
             else:
+                zeros = torch.zeros(b, dtype=torch.bool, device=ctx.device)
                 outs["#err"] = _scatter_drop(full_err, rowidx, ctx.err)
-                outs["#keep"] = _scatter_drop(
-                    torch.zeros(b, dtype=torch.bool, device=ctx.device),
-                    rowidx, fin)
+                outs["#keep"] = _scatter_drop(zeros, rowidx, fin)
+                if "#foldok" in outs:
+                    outs["#foldok"] = _scatter_drop(zeros, rowidx,
+                                                    outs["#foldok"])
                 outs["#rowidx"] = rowidx
                 outs["#overflow"] = overflow
             return outs
 
         return fn
+
+
+class AggregateStage:
+    """A pipeline breaker: one aggregate operator over every row of its
+    input (reference: physical/AggregateStage.cc). `source` is set when
+    the aggregate reads a source directly."""
+
+    def __init__(self, op: L.LogicalOperator,
+                 source: Optional[L.LogicalOperator] = None):
+        self.op = op
+        self.source = source
+
+
+# ---------------------------------------------------------------------------
+# aggregate folds on the device
+# ---------------------------------------------------------------------------
+
+def eval_fold_terms(spec, row: CV, fin: torch.Tensor, b: int, device):
+    """The recognized fold's expressions over a batch of rows, under an
+    error context of their own: (values [B] per term, ok [B], risk 0-d).
+    `ok` holds for rows in `fin` whose expressions did not raise; the rest
+    fold on the interpreter. `risk` is `FoldSpec.order_risk` over the rows
+    in `ok`. Raises NotCompilable outside the compiled subset."""
+    fctx = EmitCtx(b, fin)
+    frame = Frame(Emitter(fctx, spec.globals), {spec.row_param: row})
+    datas = []
+    for expr in spec.exprs:
+        cv = frame._require_numeric(frame.eval(expr), "aggregate expr")
+        if cv.data is None:
+            raise NotCompilable("aggregate expr has no value")
+        d = cv.data
+        if d.dtype == torch.bool:
+            if spec.reducers[len(datas)] != "sum":
+                raise NotCompilable("min/max of bools")  # keeps bool type
+            d = d.to(torch.int64)
+        datas.append(d)
+    ok = fin & (fctx.err == 0)
+    return datas, ok, spec.order_risk(datas, ok)
+
+
+def fold_identity(red: str, d: torch.Tensor):
+    """The value a padded slot holds in a reduction of d (int64 or
+    float64): -0.0 adds nothing to a float, the extremes lose every min
+    and max."""
+    if red == "sum":
+        return -0.0 if d.is_floating_point() else 0
+    if d.is_floating_point():
+        return float("inf") if red == "min" else float("-inf")
+    info = torch.iinfo(d.dtype)
+    return info.max if red == "min" else info.min
+
+
+def _emit_fused_fold(spec, row: CV, fin, bcur: int, device) -> dict:
+    """A whole-dataset fold inside the transform stage's pass (counterpart
+    of the reference's `_emit_fused_fold`, plan/physical.py:605): the
+    partials '#fold{i}' over the rows that reach the aggregate, seeded
+    with each reducer's identity, the count of rows they cover
+    ('#foldcnt'), the rows whose fold expression raised ('#foldok' false
+    where `fin` holds) and '#foldrisk' (FoldSpec.order_risk). Padding and
+    compacted-away slots are outside `fin`."""
+    from ..ops.fold import tree_reduce
+
+    datas, ok, risk = eval_fold_terms(spec, row, fin, bcur, device)
+    outs = {}
+    for i, (d, red) in enumerate(zip(datas, spec.reducers)):
+        outs[f"#fold{i}"] = tree_reduce(
+            torch.where(ok, d, fold_identity(red, d)), red)
+    outs["#foldcnt"] = ok.sum()
+    outs["#foldrisk"] = risk
+    outs["#foldok"] = ok
+    return outs
 
 
 def _emit_op(ctx: EmitCtx, op: L.LogicalOperator, row: CV, keep):
@@ -152,8 +249,10 @@ def _emit_decode(ctx: EmitCtx, op: L.DecodeOperator, row: CV) -> CV:
     """Normal-case cell decode on the device (reference:
     CSVParseRowGenerator.cc's generated parse). A null cell in a column
     speculated non-Option raises NULLERROR; a cell that does not parse as
-    its column's type raises BADPARSE_STRING_INPUT. Both rows re-run on the
-    interpreter, whose decode keeps the raw string."""
+    its column's type raises BADPARSE_STRING_INPUT, and a float cell that
+    parse_f64 leaves to CPython NORMALCASEVIOLATION. These rows re-run on
+    the interpreter, whose decode keeps the raw string where the parse
+    fails."""
     frame = Frame(Emitter(ctx, {}), {})
     cells = row.elts if row.elts is not None else (row,)
     elts = []
@@ -177,21 +276,25 @@ def _emit_decode(ctx: EmitCtx, op: L.DecodeOperator, row: CV) -> CV:
             frame.raise_where(~is_null, ExceptionCode.NORMALCASEVIOLATION)
             elts.append(null_cv())
             continue
-        if base is not T.I64:
-            # float and bool cells need parse_f64 / strip, not ported yet
-            raise NotCompilable(f"decode to {t}")
-        val, bad, route = S.parse_i64(sb, sl)
-        # a cell outside int64 violates the i64 column either way
-        bad = bad | route
-        if t.is_optional():
-            frame.raise_where(bad & ~is_null,
-                              ExceptionCode.BADPARSE_STRING_INPUT)
-            elts.append(CV(t=t, data=val, valid=~is_null))
+        if base is T.I64:
+            val, bad, route = S.parse_i64(sb, sl)
+            # a cell outside int64 violates the i64 column either way
+            bad = bad | route
+            route = None
+        elif base is T.F64:
+            # route: a float CPython reads that parse_f64 does not evaluate
+            val, bad, route = S.parse_f64(sb, sl)
         else:
+            # bool cells need strip, not ported yet
+            raise NotCompilable(f"decode to {t}")
+        if not t.is_optional():
             frame.raise_where(is_null, ExceptionCode.NULLERROR)
-            frame.raise_where(bad & ~is_null,
-                              ExceptionCode.BADPARSE_STRING_INPUT)
-            elts.append(CV(t=T.I64, data=val))
+        frame.raise_where(bad & ~is_null, ExceptionCode.BADPARSE_STRING_INPUT)
+        if route is not None:
+            frame.raise_where(route & ~is_null,
+                              ExceptionCode.NORMALCASEVIOLATION)
+        elts.append(CV(t=t, data=val, valid=~is_null) if t.is_optional()
+                    else CV(t=base, data=val))
     names = user_columns(op.declared)
     if len(elts) == 1 and names is None:
         return elts[0]
@@ -321,14 +424,87 @@ def _compact_rows(ctx: EmitCtx, row: CV, keep, rowidx, full_err, overflow,
 # planning
 # ---------------------------------------------------------------------------
 
-def plan_stages(sink: L.LogicalOperator) -> list[TransformStage]:
-    """Walk the DAG sink -> source (reference: PhysicalPlan.cc:60-238).
-    No operator of this package breaks a pipeline, so the plan is one
-    stage."""
+def plan_stages(sink: L.LogicalOperator) -> list:
+    """Walk the DAG sink -> source, cutting it at the breakers (reference:
+    PhysicalPlan.cc:60-238 splitIntoAndPlanStages). The first stage reads
+    the source; each later one reads the stage before it. A breaker right
+    after the source (or after another breaker) reads its input with no
+    transform stage between, except a recognized whole-dataset fold, which
+    runs inside the transform stage before it. The first stage reads only
+    the CSV columns the plan needs."""
     chain: list[L.LogicalOperator] = []
     node = sink
     while node.parents:
         chain.append(node)
         node = node.parent
     chain.reverse()
-    return [TransformStage(node, chain)]
+    stages: list = []
+    cur: list[L.LogicalOperator] = []
+    inp: L.LogicalOperator = node
+    from .aggregates import AggregateOperator, device_fold_spec
+
+    for op in chain:
+        if not op.is_breaker():
+            cur.append(op)
+            continue
+        # a recognized whole-dataset fold always has a transform stage to
+        # run in, an empty one if need be
+        spec = device_fold_spec(op) if type(op) is AggregateOperator \
+            else None
+        if cur or spec is not None:
+            stages.append(TransformStage(inp, cur))
+            stages[-1].fold_spec = spec
+        stages.append(AggregateStage(op, source=None if stages else inp))
+        cur, inp = [], op
+    if cur or not stages:
+        stages.append(TransformStage(inp, cur))
+    if isinstance(stages[0], TransformStage):
+        from .optimizer import agg_required_columns
+
+        nxt = stages[1] if len(stages) > 1 else None
+        _apply_projection(stages[0], agg_required_columns(nxt.op)
+                          if isinstance(nxt, AggregateStage) else None)
+    return stages
+
+
+def _apply_projection(stage: TransformStage, output_required=None) -> None:
+    """Read only the CSV columns the stage needs (counterpart of the
+    reference's `_apply_projection`, plan/physical.py:1116): the source
+    and its cell decode are replaced by copies over those columns, and the
+    stage's operators are relinked to them. Operator ids stay, so
+    exception records name the same operators."""
+    import copy
+
+    from ..io.csvsource import CSVSourceOperator
+    from .optimizer import required_source_columns
+
+    src = stage.source
+    if not isinstance(src, CSVSourceOperator) or not stage.ops or \
+            not isinstance(stage.ops[0], L.DecodeOperator):
+        return
+    cols = tuple(src.schema().columns)
+    req = required_source_columns(cols, stage.ops, output_required)
+    if req is None or len(req) >= len(cols):
+        return
+    keep = [cols.index(c) for c in req]
+    new_src = src.project(keep)
+    dec = stage.ops[0]
+    prev = L.DecodeOperator(new_src, T.row_of(
+        req, [dec.declared.types[i] for i in keep]), dec.null_values)
+    prev.id = dec.id
+    new_ops = [prev]
+    for op in stage.ops[1:]:
+        op = copy.copy(op)
+        if isinstance(op, L.SelectColumnsOperator):
+            # positions shift when columns are dropped: select by name
+            names = op.parent.schema().columns
+            op.selected = [names[c] if isinstance(c, int) else c
+                           for c in op.selected]
+        op.parents = [prev]
+        op.__dict__.pop("_sample_memo", None)
+        if hasattr(op, "_schema_cache"):
+            op._schema_cache = None
+        new_ops.append(op)
+        prev = op
+    stage.source, stage.ops = new_src, new_ops
+    stage._relink_schemas()

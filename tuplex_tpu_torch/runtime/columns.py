@@ -673,6 +673,23 @@ def partition_to_pylist(part: Partition) -> list:
     return out
 
 
+def decode_key_tuples(part: Partition, indices, kidx) -> list[tuple]:
+    """Key tuples (the values of columns `kidx`) of the given normal rows,
+    decoding only the key columns' leaves."""
+    types = part.schema.types
+    leaves: dict[str, Leaf] = {}
+    for new_ci, ci in enumerate(kidx):
+        for path, _ in flatten_type(types[ci], str(ci)):
+            leaves[str(new_ci) + path[len(str(ci)):]] = part.leaves[path]
+    sub = Partition(schema=T.row_of([f"_{j}" for j in range(len(kidx))],
+                                    [types[ci] for ci in kidx]),
+                    num_rows=part.num_rows, leaves=leaves)
+    idx = np.asarray(list(indices), dtype=np.int64)
+    vals = partition_to_pylist(gather_partition(
+        sub, np.arange(len(idx), dtype=np.int64), idx, len(idx)))
+    return [(v,) for v in vals] if len(kidx) == 1 else vals
+
+
 def decode_rows(part: Partition, indices) -> list[Row]:
     """Bulk-decode the given local row positions into boxed Rows (the
     interpreter path's input)."""
