@@ -5,9 +5,9 @@
 Phases, in order; any failure ends the run with a nonzero exit:
 
   1. the card's name and power limit;
-  2. build the NFA scan kernel (csrc/nfa_scan.cu) with nvcc and, at the
-     same time, the native host module (native/src/fasttransfer.cpp) with
-     g++;
+  2. build the kernels (csrc/nfa_scan.cu, csrc/join_probe.cu) with nvcc
+     and, at the same time, the native host module
+     (native/src/fasttransfer.cpp) with g++;
   3. the kernel against its plain torch version on the card: the pattern
      x string matrix of the reference package's NFA tests, seeded random
      byte matrices of 1,000,003 rows x 128 bytes, edge inputs (widths 75,
@@ -41,7 +41,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
      (rows and exception counts equal a plain CPython loop's); and NYC 311
      over 1,000,000 generated rows (seed 23), equal in order to the plain
      loop;
-  8. every entry point of the native module against its Python path on
+  8. the join probe kernel (csrc/join_probe.cu) against its plain torch
+     version on two seeded batches of string keys through the join's own
+     key signatures, None keys and probe matrices wider than the build's
+     among them: 1,000,000 probes into 9,300 keys of two words (about the
+     rows of the public GlobalAirportDatabase.txt) and 1,000,000 into
+     200,000 keys of three words; results must match exactly. Kernel,
+     plain version and torch.searchsorted on one-word keys of the same
+     sizes are timed;
+  9. the flights pipeline over 1,000,000 generated perf rows (seed 13,
+     all 30 columns; about a month and a half of the public BTS on-time
+     table) with the six-row carrier and airport files as build sides,
+     through Context() on the card, checked against the plain Python loop
+     (rows in order, values exact, exception counts); every join probed on
+     the card, the kernel launched on the path, and held against its plain
+     version on the probes the path gave it;
+ 10. TPC-H Q19 over 200,000 parts (SF1's part table) and 1,000,000
+     lineitems (seed 19), twice, within 1e-9 relative of the plain loop and
+     the same bits both runs, every row probed on the card;
+ 11. every entry point of the native module against its Python path on
      small inputs. The run fails unless the main path (phases 4-7) called
      the native entry points it uses and every entry point was called.
 
@@ -71,10 +89,12 @@ if not torch.cuda.is_available():
 
 from tuplex_tpu_torch import Context, native              # noqa: E402
 from tuplex_tpu_torch.core import typesys as T            # noqa: E402
+from tuplex_tpu_torch.exec.joinexec import KeyLayout      # noqa: E402
 from tuplex_tpu_torch.io import csvsource                 # noqa: E402
-from tuplex_tpu_torch.models import (logs, nyc311,        # noqa: E402
-                                     tpch, zillow)
-from tuplex_tpu_torch.ops import nfa_cuda                 # noqa: E402
+from tuplex_tpu_torch.models import (flights, logs,       # noqa: E402
+                                     nyc311, tpch, zillow)
+from tuplex_tpu_torch.ops import join as J                # noqa: E402
+from tuplex_tpu_torch.ops import join_cuda, nfa_cuda      # noqa: E402
 from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
 from tuplex_tpu_torch.plan.physical import plan_stages    # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
@@ -87,6 +107,13 @@ TPCH_ROWS = 1_000_000       # SF1's lineitem has 6,001,215: cut for time
 TPCH_SEED = 7
 NYC311_ROWS = 1_000_000
 NYC311_SEED = 23
+FLIGHTS_ROWS = 1_000_000    # about 1.5 months of the BTS on-time table
+FLIGHTS_SEED = 13
+Q19_PARTS = 200_000         # TPC-H SF1's part table
+Q19_ITEMS = 1_000_000       # SF1's lineitem has 6,001,215: cut for time
+Q19_SEED = 19
+PROBES = 1_000_000          # probe rows of the kernel phase's batches
+AIRPORT_KEYS = 9_300        # about the rows of GlobalAirportDatabase.txt
 REL_TOL = 1e-9              # float sums: partials merged per partition
 NON_ASCII_EVERY = 100_000
 RANDOM_ROWS = 1_000_003     # not a multiple of any block size
@@ -561,6 +588,179 @@ def nyc311_phase(tmp: str) -> None:
     os.remove(path)
 
 
+def key_words(rng, n: int, width: int, leaf_width: int, dev,
+              pick_from=None):
+    """Key words of n string keys through the join's own signature
+    (exec/joinexec.py KeyLayout at `width` bytes with a valid byte): keys
+    of 3..width uppercase letters in a `leaf_width`-wide matrix with
+    stale bytes past each length (a wider matrix is cut to `width`), 1% of
+    them None. With `pick_from` (bytes, lens), about half the keys are
+    drawn from it. Returns (words, bytes, lens)."""
+    b = rng.integers(65, 91, size=(n, leaf_width), dtype=np.uint8)
+    lens = rng.integers(3, width + 1, size=n).astype(np.int32)
+    if pick_from is not None:
+        take = rng.random(n) < 0.5
+        src = rng.integers(0, len(pick_from[1]), size=int(take.sum()))
+        b[take, :width] = pick_from[0][src]
+        lens[take] = pick_from[1][src]
+    valid = rng.random(n) >= 0.01
+    layout = KeyLayout(T.STR, width, has_valid=True)
+    key, _ = layout.key_leaf(C.StrLeaf(b, lens, valid), {}, n)
+    return layout.words(key, dev), b, lens
+
+
+def probe_phase(rng, u: int, width: int, dev):
+    """The kernel against its plain version on u distinct build keys and
+    PROBES probe keys (about half matching, probe matrix 4 bytes wider
+    than the build's); times both and torch.searchsorted on one-word keys
+    of the same sizes. Returns (largest difference, numbers)."""
+    words, b, lens = key_words(rng, u * 5 // 4, width, width, dev)
+    flat = torch.unique(J.flip(words), dim=0)     # sorted, unique
+    keep = torch.randperm(len(flat), device=dev)[:u].sort().values
+    build = J.flip(flat[keep]).contiguous()
+    probe, _, _ = key_words(rng, PROBES, width, width + 4, dev,
+                            pick_from=(b, lens))
+    return time_probe(probe, build, f"{u} keys")
+
+
+def time_probe(words: torch.Tensor, build: torch.Tensor, what: str):
+    """join_probe's kernel against its plain version on the card (exact),
+    and the times of both, of torch.searchsorted on one-word keys of the
+    same sizes, and the bound: probe words and the table read once, 9
+    bytes a row written, at the device memory rate."""
+    before = join_cuda.launches
+    pos, matched = J.join_probe(words, build)
+    want_pos, want_m = J.lower_bound_plain(words, build)
+    torch.cuda.synchronize()
+    if join_cuda.launches != before + 1:
+        raise AssertionError(f"join_probe on {what}: no kernel launch")
+    err = int((pos - want_pos).abs().max()) + int(
+        (matched != want_m).sum())
+    if err:
+        raise AssertionError(f"join_probe kernel != plain on {what}")
+    b, nw = words.shape
+    u = build.shape[0]
+    ms, host_ms = kernel_device_ms(lambda: J.join_probe(words, build), 50)
+    plain_ms = cuda_ms(lambda: J.lower_bound_plain(words, build), 3)
+    one = torch.sort(build[:, 0]).values
+    lib_ms, _ = kernel_device_ms(
+        lambda: torch.searchsorted(one, words[:, 0]), 50)
+    bound_ms = (b * nw * 8 + u * nw * 8 + 9 * b) / HBM_BYTES_PER_S * 1e3
+    print(f"join_probe at [{b}, {nw}] probes into [{u}, {nw}] build words "
+          f"({what}): {int(matched.sum())} matched; kernel {ms:.4f} ms "
+          f"({host_ms:.4f} ms of host time per wrapper call), plain "
+          f"{plain_ms:.4f} ms, torch.searchsorted on one-word keys "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms; kernel == plain")
+    return err, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "library_ms": lib_ms}
+
+
+def flights_phase(tmp: str):
+    """Flights on the card against the plain loop on the same files.
+    Returns (kernel launches in the pipeline's run, the probe inputs the
+    path gave the kernel)."""
+    paths = [os.path.join(tmp, n) for n in
+             ("perf.csv", "carrier.csv", "airports.txt")]
+    t0 = time.perf_counter()
+    flights.generate_perf_csv(paths[0], FLIGHTS_ROWS, seed=FLIGHTS_SEED)
+    flights.generate_carrier_csv(paths[1])
+    flights.generate_airport_db(paths[2])
+    print(f"flights: generated {FLIGHTS_ROWS} perf rows, "
+          f"{os.path.getsize(paths[0])} bytes, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    excs: dict = {}
+    want, loop_s = timed(lambda: flights.run_reference_python(
+        *paths, exceptions=excs))
+    inputs = []
+    kernel = join_cuda.probe
+
+    def recording(words, build):
+        inputs.append((words, build))
+        return kernel(words, build)
+
+    ctx = Context()
+    join_cuda.probe = recording
+    join_cuda.launches = 0
+    try:
+        t0 = time.perf_counter()
+        ds = flights.build_pipeline(ctx, *paths)
+        got = ds.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        join_cuda.probe = kernel
+    launches = join_cuda.launches
+    d = flights.OUTPUT_COLS.index("Distance")
+    if got != want or [r[d].hex() for r in got] != \
+            [r[d].hex() for r in want]:
+        bad = next((i for i, (g, w) in enumerate(zip(got, want))
+                    if g != w or g[d].hex() != w[d].hex()),
+                   min(len(got), len(want)))
+        raise AssertionError(f"flights: {len(got)} rows != python "
+                             f"{len(want)} rows; first difference at {bad}")
+    if ds.exception_counts() != excs:
+        raise AssertionError(f"flights: exceptions {ds.exception_counts()} "
+                             f"!= python {excs}")
+    m = ctx.metrics
+    joins = [s for s in m.stages if "host_probed_rows" in s]
+    if len(joins) != 3 or any(s["host_probed_rows"] for s in joins):
+        raise AssertionError(f"flights: joins {joins}")
+    if launches <= 0:
+        raise AssertionError("flights did not launch the join probe kernel")
+    print(f"flights: {FLIGHTS_ROWS} rows -> {len(got)} rows in {wall:.3f} s "
+          f"({FLIGHTS_ROWS / wall:.0f} rows/s; python loop {loop_s:.3f} s), "
+          f"exceptions {ds.exception_counts()} (python {excs}), ignored "
+          f"rows {m.ignoredRows()}, interpreter rows {m.interpreterRows()}, "
+          f"fast path {m.fastPathWallTime():.3f} s, slow path "
+          f"{m.slowPathWallTime():.3f} s, backend {m.totalWallTime():.3f} s; "
+          f"join_probe launches {launches}")
+    for i, s in enumerate(m.stages):
+        print(f"  flights stage {i}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in s.items()))
+    for p in paths:
+        os.remove(p)
+    return launches, inputs
+
+
+def q19_phase(tmp: str) -> None:
+    part, li = os.path.join(tmp, "part.csv"), os.path.join(tmp, "li.csv")
+    t0 = time.perf_counter()
+    tpch.generate_q19_csvs(part, li, Q19_PARTS, Q19_ITEMS, seed=Q19_SEED)
+    print(f"q19: generated {Q19_PARTS} parts and {Q19_ITEMS} lineitems in "
+          f"{time.perf_counter() - t0:.2f} s")
+    want, loop_s = timed(lambda: tpch.run_reference_q19(part, li))
+    bits = set()
+    for run in (1, 2):
+        ctx = Context()
+        t0 = time.perf_counter()
+        ds = tpch.q19(ctx, part, li)
+        (got,) = ds.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = ctx.metrics
+        (join,) = [s for s in m.stages if "host_probed_rows" in s]
+        if not close(got, want) or ds.exception_counts() or \
+                join["host_probed_rows"] or m.interpreterRows():
+            raise AssertionError(f"q19: {got!r} != python {want!r}, "
+                                 f"exceptions {ds.exception_counts()}, "
+                                 f"join {join}, interpreter rows "
+                                 f"{m.interpreterRows()}")
+        bits.add(got.hex())
+        print(f"q19 run {run}: collect() {wall:.3f} s (python loop "
+              f"{loop_s:.3f} s); revenue {got!r} (python {want!r}); join "
+              f"stage {join['wall_s']:.3f} s (build {join['build_s']:.3f} "
+              f"s, {join['build_keys']} keys of {join['key_words']} word, "
+              f"{join['device_probed_rows']} rows probed on the card, "
+              f"{join['host_probed_rows']} on the host, {join['rows_out']} "
+              f"out); stages " + " / ".join(
+                  f"{s['wall_s']:.3f}" for s in m.stages) + " s")
+    if len(bits) != 1:
+        raise AssertionError(f"q19: two runs gave {bits}")
+    os.remove(part)
+    os.remove(li)
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
 
@@ -570,12 +770,14 @@ def main() -> None:
 
     # 2 --------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:      # nvcc and g++ side by side
-        lib_f, mod_f = pool.submit(nfa_cuda.build), pool.submit(native.get)
-        lib, mod = lib_f.result(), mod_f.result()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib}")
-    if nfa_cuda.build_log:
-        print(nfa_cuda.build_log.strip())
+    with ThreadPoolExecutor(3) as pool:      # nvcc (twice) and g++ at once
+        libs = [pool.submit(k.build) for k in (nfa_cuda, join_cuda)]
+        mod_f = pool.submit(native.get)
+        libs, mod = [f.result() for f in libs], mod_f.result()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {libs}")
+    for k in (nfa_cuda, join_cuda):
+        if k.LIBRARY.build_log:
+            print(k.LIBRARY.build_log.strip())
     if mod is None:
         raise AssertionError("native module: no g++ on PATH")
     print(f"native module: {mod.__file__}")
@@ -729,6 +931,25 @@ def main() -> None:
     os.rmdir(tmp)
 
     # 8 --------------------------------------------------------------
+    max_probe_err = 0
+    for u, width in ((AIRPORT_KEYS, 8), (Q19_PARTS, 16)):
+        err, _ = probe_phase(np.random.default_rng(u), u, width, dev)
+        max_probe_err = max(max_probe_err, err)
+
+    # 9 --------------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    probe_launches, probe_inputs = flights_phase(tmp)
+    # the kernel at the path's own inputs: the largest probe it made
+    words, build = max(probe_inputs, key=lambda wb: wb[0].shape[0])
+    err, probe_nums = time_probe(words, build, "flights probe")
+    max_probe_err = max(max_probe_err, err)
+    del probe_inputs, words, build
+
+    # 10 -------------------------------------------------------------
+    q19_phase(tmp)
+    os.rmdir(tmp)
+
+    # 11 -------------------------------------------------------------
     zero_native_calls()
     native_check()
     for k, v in native.calls.items():
@@ -745,7 +966,12 @@ def main() -> None:
         "replaces": "tuplex_tpu/ops/pallas_nfa.py:29",
         "launches": launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": None}]}))
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "join_probe", "route": "cuda",
+        "source": "tuplex_tpu_torch/csrc/join_probe.cu",
+        "replaces": "tuplex_tpu/exec/joinexec.py:629",
+        "launches": probe_launches, "max_abs_err": max_probe_err,
+        **probe_nums, "bound_by": "bytes"}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

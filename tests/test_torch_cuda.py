@@ -1,15 +1,16 @@
-"""tuplex_tpu_torch on the card: the CUDA NFA scan against its plain torch
-version, the string kernels and the aggregate reductions on CUDA against
-the same ops on the CPU, and the pipelines (smoke, log grep, Zillow Z1,
-TPC-H Q6 and Q1, NYC 311) through Context() on CUDA.
+"""tuplex_tpu_torch on the card: the CUDA NFA scan and the CUDA join probe
+against their plain torch versions, the string kernels and the aggregate
+reductions on CUDA against the same ops on the CPU, and the pipelines
+(smoke, log grep, Zillow Z1, TPC-H Q6, Q1 and Q19, NYC 311, flights)
+through Context() on CUDA.
 
 Every test here is marked `cuda` and skips without a GPU. This file
 imports neither jax nor tuplex_tpu, so it runs on a GPU host without them:
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Oracles: the plain version (`NFARegex.match_bitmask`) on the same CUDA
-tensors, Python `re`, the CPU run of each string kernel (itself held
+Oracles: the plain versions (`NFARegex.match_bitmask`,
+`ops/join.py:lower_bound_plain`) on the same CUDA tensors, Python `re`, the CPU run of each string kernel (itself held
 against the reference package by tests/test_torch_strings.py), and a
 plain Python loop. Tolerance: exact.
 """
@@ -21,10 +22,11 @@ import pytest
 import torch
 
 import tuplex_tpu_torch
-from tuplex_tpu_torch.models import logs, nyc311, tpch, zillow
+from tuplex_tpu_torch.models import flights, logs, nyc311, tpch, zillow
 from tuplex_tpu_torch.ops import nfa as port_nfa
 from tuplex_tpu_torch.ops import fold as F
-from tuplex_tpu_torch.ops import nfa_cuda
+from tuplex_tpu_torch.ops import join as J
+from tuplex_tpu_torch.ops import join_cuda, nfa_cuda
 from tuplex_tpu_torch.ops import strings as S
 from tuplex_tpu_torch.runtime import columns as C
 
@@ -290,3 +292,142 @@ def test_tpch_and_nyc311_on_cuda(tmp_path, cuda_device):
     nyc311.generate_csv(path, 3000, seed=23)
     assert nyc311.build_pipeline(tuplex_tpu_torch.Context(), path) \
         .collect() == nyc311.run_reference_python(path)
+
+
+def _probe_words(seed: int, u: int, nw: int, b: int):
+    """Sorted unique build words in unsigned order (top bits set and
+    clear) and probe words: build rows, rows one off in their last word,
+    random rows."""
+    rng = np.random.default_rng(seed)
+    build = np.unique(rng.integers(0, 2**64 - 1, size=(u, nw),
+                                   dtype=np.uint64), axis=0)
+    probe = build[rng.integers(0, len(build), size=b)].copy()
+    near = rng.random(b) < 0.3
+    probe[near, -1] += np.uint64(1)
+    rand = rng.random(b) < 0.2
+    probe[rand] = rng.integers(0, 2**64 - 1, size=(int(rand.sum()), nw),
+                               dtype=np.uint64)
+    return (torch.from_numpy(build.view(np.int64)),
+            torch.from_numpy(probe.view(np.int64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [2, 3, 4])
+@pytest.mark.parametrize("u", [1, 2, 9, 1000, 9300, 100_000])
+def test_join_probe_kernel_matches_plain(nw, u, cuda_device):
+    """The kernel against its plain version on the same CUDA tensors:
+    tables that fit shared memory and tables that do not (100,000 keys of
+    2-4 words), and a probe batch that is not a multiple of a block."""
+    build, probe = _probe_words(nw * 100_000 + u, u, nw, 50_001)
+    build, probe = build.to(cuda_device), probe.to(cuda_device)
+    before = join_cuda.launches
+    pos, matched = J.join_probe(probe, build)
+    assert join_cuda.launches == before + 1
+    want_pos, want_m = J.lower_bound_plain(probe, build)
+    assert torch.equal(pos, want_pos) and torch.equal(matched, want_m)
+    assert 0 < int(matched.sum()) < probe.shape[0]
+
+
+@pytest.mark.cuda
+def test_join_probe_wrapper_rejects_bad_inputs(cuda_device):
+    build, probe = _probe_words(1, 10, 2, 10)
+    with pytest.raises(ValueError):
+        join_cuda.probe(probe, build)               # CPU tensors
+    with pytest.raises(ValueError):
+        join_cuda.probe(probe.to(cuda_device)[:, :1],
+                        build.to(cuda_device))      # word counts differ
+    with pytest.raises(TypeError):
+        join_cuda.probe(probe.to(cuda_device).to(torch.int32),
+                        build.to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_flights_and_q19_on_cuda(tmp_path, cuda_device):
+    paths = [str(tmp_path / n) for n in
+             ("perf.csv", "carrier.csv", "airports.txt")]
+    flights.generate_perf_csv(paths[0], 3000, seed=13)
+    flights.generate_carrier_csv(paths[1])
+    flights.generate_airport_db(paths[2])
+    ctx = tuplex_tpu_torch.Context()
+    before = join_cuda.launches
+    got = flights.build_pipeline(ctx, *paths).collect()
+    assert got == flights.run_reference_python(*paths)
+    assert join_cuda.launches > before
+    joins = [m for m in ctx.metrics.stages if "host_probed_rows" in m]
+    assert len(joins) == 3 and all(m["host_probed_rows"] == 0
+                                   for m in joins)
+    part, li = str(tmp_path / "part.csv"), str(tmp_path / "li.csv")
+    tpch.generate_q19_csvs(part, li, 500, 5000, seed=19)
+    (q19,) = tpch.q19(tuplex_tpu_torch.Context(), part, li).collect()
+    want = tpch.run_reference_q19(part, li)
+    assert abs(q19 - want) <= 1e-9 * abs(want)
+
+
+def _dict_join(left, right, how, n_right):
+    """The plain loop with Python's dict rules (key first on both sides):
+    a right row with an unhashable key is never found, and a left row with
+    one finds nothing."""
+    build = {}
+    for r in right:
+        try:
+            build.setdefault(r[0], []).append(r)
+        except TypeError:
+            pass
+    out = []
+    for r in left:
+        try:
+            ms = build.get(r[0], [])
+        except TypeError:
+            ms = []
+        out.extend(r[1:] + r[:1] + m[1:] for m in ms)
+        if not ms and how == "left":
+            out.append(r[1:] + r[:1] + (None,) * (n_right - 1))
+    return out
+
+
+_JOIN_LAYOUTS = {
+    # str keys of two words (the kernel), tuple and list payloads
+    "tuple_payloads": ([(f"carrier{i % 7}", (i, f"s{i}"))
+                        for i in range(60)],
+                       [(f"carrier{i % 9}", (i * 0.5, f"t{i}"), [i, i + 1])
+                        for i in range(40)]),
+    "option_tuple": ([(f"key{i % 7}", i) for i in range(60)],
+                     [(f"key{i % 9}", (i, "x") if i % 3 else None)
+                      for i in range(40)]),
+    "null_keys": ([(None, i) for i in range(30)],
+                  [(None, f"r{i}") for i in range(5)]),
+    # boxed rows with unhashable keys on both sides, past the sample
+    "unhashable": ([(f"key{i % 5}", f"a{i}") for i in range(300)]
+                   + [(["key2"], "x"), ("key3", "y")],
+                   [(f"key{i % 4}", f"r{i}") for i in range(300)]
+                   + [(["key3"], "q"), ("key3", "z")]),
+    "empty_build": ([(f"key{i % 7}", i) for i in range(60)],
+                    [(f"key{i}", f"r{i}") for i in range(10)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_JOIN_LAYOUTS))
+def test_join_layouts_and_odd_keys_on_cuda(case, cuda_device):
+    """Payload columns of any layout, null keys, unhashable boxed keys and
+    an empty build side join on the card, none on the host dict path.
+    Oracle: the plain loop with Python's dict rules."""
+    left, right = _JOIN_LAYOUTS[case]
+    for how in ("inner", "left"):
+        ctx = tuplex_tpu_torch.Context({"tuplex.partitionSize": "4KB"})
+        lds = ctx.parallelize(left, columns=["k", "a"])
+        rds = ctx.parallelize(right, columns=["k2"] + [
+            f"b{j}" for j in range(len(right[0]) - 1)])
+        if case == "empty_build":
+            rds = rds.filter(lambda x: x["k2"] == "none")
+        before = join_cuda.launches
+        got = (lds.join if how == "inner" else lds.leftJoin)(
+            rds, "k", "k2").collect()
+        assert got == _dict_join(left, [] if case == "empty_build"
+                                 else right, how, len(right[0]))
+        (stats,) = [m for m in ctx.metrics.stages
+                    if "host_probed_rows" in m]
+        assert stats["host_probed_rows"] == 0
+        assert stats["device_probed_rows"] == len(left)
+        if case in ("tuple_payloads", "option_tuple", "unhashable"):
+            assert join_cuda.launches > before

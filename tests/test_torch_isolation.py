@@ -155,6 +155,40 @@ def test_reference_contexts_keep_off_the_shared_aot_store():
     assert {"test_torch_pipeline.py", "test_torch_faults.py"} <= set(checked)
 
 
+def _wide_fixtures(tree: ast.Module):
+    """Fixtures of module, package or session scope: they are set up
+    before the function-scoped autouse fixtures of their file."""
+    for fn in tree.body:
+        if isinstance(fn, ast.FunctionDef) and any(
+                isinstance(d, ast.Call) and any(
+                    k.arg == "scope" and getattr(k.value, "value", None)
+                    in ("module", "package", "session")
+                    for k in d.keywords) for d in fn.decorator_list):
+            yield fn
+
+
+def test_wide_fixtures_set_their_own_aot_store():
+    """A module-scoped fixture that runs a `tuplex_tpu.Context` runs
+    before the autouse fixture that sets TUPLEX_AOT_CACHE, so it sets the
+    store itself (it would otherwise warm the shared store under ~/.cache
+    for every other worker, ROADMAP C5)."""
+    tests = os.path.join(REPO, "tests")
+    for name in sorted(os.listdir(tests)):
+        if not (name.startswith("test_torch_") and name.endswith(".py")):
+            continue
+        tree = ast.parse(open(os.path.join(tests, name)).read())
+        for fn in _wide_fixtures(tree):
+            runs = any(isinstance(n, ast.Attribute) and n.attr == "Context"
+                       and getattr(n.value, "id", None) == "tuplex_tpu"
+                       for n in ast.walk(fn))
+            sets = any(isinstance(n, ast.Call) and
+                       isinstance(n.func, ast.Attribute) and
+                       n.func.attr == "setenv" and n.args and
+                       getattr(n.args[0], "value", None) == "TUPLEX_AOT_CACHE"
+                       for n in ast.walk(fn))
+            assert sets or not runs, f"{name}: fixture {fn.name}"
+
+
 def test_package_imports_neither_jax_nor_reference():
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_zillow_profile.py")]

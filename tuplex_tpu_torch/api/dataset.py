@@ -1,8 +1,8 @@
 """Public DataSet — lazy operator-graph builder (counterpart of
 `tuplex_tpu/api/dataset.py`; reference: python/tuplex/dataset.py — unique:36,
 map:49, filter:83, withColumn/mapColumn/selectColumns, collect:113,
-columns:365, types:375, aggregate:593, aggregateByKey:644,
-exception_counts:707). Every method returns a NEW DataSet over a new
+resolve:162, ignore:319, renameColumn, columns:365, types:375, join:384,
+leftJoin:442, aggregate:593, aggregateByKey:644, exception_counts:707). Every method returns a NEW DataSet over a new
 logical operator; nothing executes until collect()."""
 
 from __future__ import annotations
@@ -10,9 +10,10 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Sequence
 
 from ..core import typesys as T
+from ..exec.local import run_plan
 from ..plan import aggregates as A
 from ..plan import logical as L
-from ..plan.physical import plan_stages
+from ..plan.joins import JoinOperator
 from ..runtime import columns as C
 
 
@@ -41,6 +42,40 @@ class DataSet:
             columns = [columns]
         return DataSet(self._context,
                        L.SelectColumnsOperator(self._op, columns))
+
+    def renameColumn(self, key, newColumnName: str) -> "DataSet":
+        """The column `key` (a name or a position) renamed."""
+        return DataSet(self._context, L.RenameColumnOperator(
+            self._op, key, newColumnName))
+
+    def resolve(self, eclass: type, ftor: Callable) -> "DataSet":
+        """Rows whose previous operator raised `eclass` take ftor(row) as
+        that operator's result."""
+        return DataSet(self._context,
+                       L.ResolveOperator(self._op, eclass, ftor))
+
+    def ignore(self, eclass: type) -> "DataSet":
+        """Rows whose previous operator raised `eclass` are dropped, and
+        not counted as exceptions (Metrics.ignoredRows counts them)."""
+        return DataSet(self._context, L.IgnoreOperator(self._op, eclass))
+
+    def join(self, dsRight: "DataSet", leftKeyColumn: str,
+             rightKeyColumn: str, prefixes=None, suffixes=None) -> "DataSet":
+        """Inner join on leftKeyColumn == rightKeyColumn: each left row,
+        in order, once for each right row with an equal key, in the right
+        side's order."""
+        return DataSet(self._context, JoinOperator(
+            self._op, dsRight._op, leftKeyColumn, rightKeyColumn, "inner",
+            prefixes, suffixes))
+
+    def leftJoin(self, dsRight: "DataSet", leftKeyColumn: str,
+                 rightKeyColumn: str, prefixes=None,
+                 suffixes=None) -> "DataSet":
+        """As join, and a left row that matches nothing appears once with
+        None in every right column."""
+        return DataSet(self._context, JoinOperator(
+            self._op, dsRight._op, leftKeyColumn, rightKeyColumn, "left",
+            prefixes, suffixes))
 
     def unique(self) -> "DataSet":
         """Distinct rows, in the order of their first occurrence."""
@@ -79,15 +114,7 @@ class DataSet:
     def collect(self) -> list:
         """Run the plan's stages in order, each over the partitions the one
         before it returned (the first over its source's)."""
-        exceptions = []
-        parts = None
-        for stage in plan_stages(self._op):
-            if parts is None:
-                parts = _source_partitions(self._context, stage.source)
-            res = self._context.backend.execute(stage, parts)
-            self._context.metrics.record_stage(res.metrics)
-            exceptions.extend(res.exceptions)
-            parts = res.partitions
+        parts, exceptions = run_plan(self._context, self._op)
         self._last_exceptions = exceptions
         return [v for p in parts for v in C.partition_to_pylist(p)]
 
@@ -98,29 +125,3 @@ class DataSet:
         for rec in self._last_exceptions:
             counts[rec.exc_name] = counts.get(rec.exc_name, 0) + 1
         return counts
-
-
-def _source_partitions(context, src) -> list:
-    """Materialize a stage source into columnar partitions with one
-    dataset-wide string width."""
-    if isinstance(src, L.ParallelizeOperator):
-        schema = src.schema()
-        part_rows = _rows_per_partition(context, schema, len(src.data))
-        parts = [C.build_partition(src.data[off: off + part_rows], schema,
-                                   start_index=off)
-                 for off in range(0, len(src.data), part_rows)]
-    else:
-        parts = src.load_partitions()
-    return C.harmonize_partitions(parts)
-
-
-def _rows_per_partition(context, schema, total_rows: int) -> int:
-    psize = context.options_store.get_size("tuplex.partitionSize", 32 << 20)
-    # rough per-row cost: 8B per numeric leaf + 64B per str leaf
-    per_row = 0
-    for ci, ct in enumerate(schema.types):
-        for _, lt in C.flatten_type(ct, str(ci)):
-            base = lt.without_option() if lt.is_optional() else lt
-            per_row += 64 if base is T.STR else 8
-    per_row = max(per_row, 8)
-    return max(64, min(total_rows, psize // per_row))

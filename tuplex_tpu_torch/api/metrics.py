@@ -35,6 +35,11 @@ class Metrics:
         set."""
         return int(self._sum("interpreter_rows"))
 
+    def ignoredRows(self) -> int:
+        """Rows that an ignore() dropped: their operator raised the class
+        it names. They are not exceptions of the job."""
+        return int(self._sum("ignored_rows"))
+
     def hostFoldedRows(self) -> int:
         """Rows the aggregate stages folded or deduplicated on the host
         instead of the device (the rows of an interpreted transform are

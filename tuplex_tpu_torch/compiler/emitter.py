@@ -21,8 +21,10 @@ exactly as Python compares them, str ==/!= and code-point ordering,
 Option == None); `in` on
 strings and constant tuples; None and Option values; tuples, tuple and
 named-row indexing; string indexing and slicing, `len`, concatenation,
-`'%0Nd' % i`, `int()`; `str.find`/`rfind`/`index`/`rindex` with a constant
-needle, `lower`/`upper`, `replace` with constant arguments; `re.search` /
+`'%0Nd' % i`, `'{}'`/`'{:0N}'`/`'{:N}'` with `str.format`, `int()`,
+`float()`; `str.find`/`rfind`/`index`/`rindex` with a constant needle,
+`lower`/`upper`, `replace` with constant arguments, `strip`/`lstrip`/
+`rstrip`, `string.capwords`; `re.search` /
 `re.match` where the reference takes its NFA (boolean-only) path; filter
 truthiness. Torch runs eagerly, so there is no scan or fusion barrier here:
 each expression launches its ops as it is evaluated. Branch speculation
@@ -34,6 +36,7 @@ from __future__ import annotations
 import ast
 import operator as _op
 import re
+import string
 from typing import Any, Callable, Optional
 
 import torch
@@ -41,7 +44,7 @@ import torch
 from ..core import typesys as T
 from ..core.errors import ExceptionCode, NotCompilable, pack_device_code
 from ..ops import strings as S
-from ..runtime.torchcfg import I32, I64
+from ..runtime.torchcfg import F64, I32, I64
 from ..utils.reflection import UDFSource, get_udf_source
 from .values import CV, const_cv, dtype_for, materialize, null_cv, tuple_cv
 
@@ -361,9 +364,12 @@ class Frame:
             recv = self.eval(node.func.value)
             attr = node.func.attr
             args = [self.eval(a) for a in node.args]
-            if recv.is_const and getattr(recv.const, "__name__", None) == "re" \
-                    and attr in ("search", "match"):
+            module = getattr(recv.const, "__name__", None) \
+                if recv.is_const else None
+            if module == "re" and attr in ("search", "match"):
                 return self._re_search(attr, args)
+            if module == "string" and attr == "capwords":
+                return self._capwords(args)
             if recv.base is T.STR:
                 return self._str_method(recv, attr, args)
             raise NotCompilable(f"method {attr}")
@@ -520,6 +526,12 @@ class Frame:
                                  ExceptionCode.NORMALCASEVIOLATION)
             return CV(t=out_t, data=r)
         if isinstance(op, ast.Div):
+            if out_t is T.I64:
+                # int / int is the correctly rounded quotient; the float
+                # division equals it while both ints convert exactly
+                big = (ad > _TWO53) | (ad < -_TWO53) | (bd > _TWO53) | \
+                    (bd < -_TWO53)
+                self.raise_where(big, ExceptionCode.NORMALCASEVIOLATION)
             bz = self._cast(b.data, T.F64)
             self.raise_where(bz == 0.0, ExceptionCode.ZERODIVISIONERROR)
             safe = torch.where(bz == 0.0, 1.0, bz)
@@ -751,10 +763,14 @@ class Frame:
                     *[a.const for a in args]))
             except Exception:
                 pass
+        if name == "format":
+            return self._str_dot_format(recv, args)
         if name not in ("find", "rfind", "index", "rindex", "lower",
-                        "upper", "replace"):
+                        "upper", "replace", "strip", "lstrip", "rstrip"):
             raise NotCompilable(f"str.{name}")
         rb, rl = self._to_strpair(recv)
+        if name in ("strip", "lstrip", "rstrip"):
+            return self._strip(name, rb, rl, args)
         if name in ("lower", "upper"):
             if args:
                 raise NotCompilable(f"str.{name} arguments")
@@ -787,6 +803,106 @@ class Frame:
         if name in ("index", "rindex"):
             self.raise_where(pos < 0, ExceptionCode.VALUEERROR)
         return CV(t=T.I64, data=pos.to(I64))
+
+    def _strip(self, name: str, rb, rl, args: list[CV]) -> CV:
+        """str.strip/lstrip/rstrip, of whitespace or of a constant ASCII
+        set. Whitespace beyond ASCII is multibyte: those rows interpret. A
+        set of ASCII bytes never matches inside a multibyte character, so
+        with one no row needs the interpreter."""
+        if len(args) > 1 or (args and not (args[0].is_const and (
+                args[0].const is None or isinstance(args[0].const, str)))):
+            raise NotCompilable(f"str.{name}: needs a constant argument")
+        chars = args[0].const if args else None
+        if chars is None:
+            self._ascii_guard(rb, rl)
+        elif any(ord(c) > 127 for c in chars):
+            raise NotCompilable(f"str.{name}: non-ASCII characters")
+        fb, fl = S.strip(rb, rl, chars, left=name != "rstrip",
+                         right=name != "lstrip")
+        return CV(t=T.STR, sbytes=fb, slen=fl)
+
+    def _capwords(self, args: list[CV]) -> CV:
+        if len(args) != 1:
+            raise NotCompilable("string.capwords: separator argument")
+        rb, rl = self._to_strpair(args[0])
+        self._ascii_guard(rb, rl)   # case maps and spaces of ASCII only
+        fb, fl = S.capwords(rb, rl)
+        return CV(t=T.STR, sbytes=fb, slen=fl)
+
+    def _str_dot_format(self, fmt: CV, args: list[CV]) -> CV:
+        """A constant format string's .format(...) with automatic fields
+        only: '{}' of a str or an int, '{:0N}' and '{:N}' of an int. Any
+        other field interprets. A None argument (formatted as 'None', or
+        raising under a width) re-runs on the interpreter."""
+        if not (fmt.is_const and isinstance(fmt.const, str)):
+            raise NotCompilable("str.format: dynamic format string")
+        try:
+            fields = list(string.Formatter().parse(fmt.const))
+        except ValueError:
+            raise NotCompilable("str.format: bad format string") from None
+        out: Optional[CV] = None
+        ai = 0
+        for literal, field, spec, conv in fields:
+            part = const_cv(literal) if literal else None
+            if field is not None:
+                if field != "" or conv is not None or \
+                        not re.fullmatch(r"(0?[1-9]\d*)?", spec) or \
+                        ai >= len(args):
+                    raise NotCompilable(f"str.format field {{{field}:{spec}}}")
+                arg = args[ai]
+                ai += 1
+                if arg.valid is not None:
+                    self.raise_where(~arg.valid,
+                                     ExceptionCode.NORMALCASEVIOLATION)
+                    arg = CV(t=arg.base, data=arg.data, sbytes=arg.sbytes,
+                             slen=arg.slen)
+                arg = self.materialize(arg)
+                if arg.base is T.STR and not spec:
+                    val = CV(t=T.STR, sbytes=arg.sbytes, slen=arg.slen)
+                elif arg.base is T.I64:
+                    width = int(spec or "0")
+                    zero = spec.startswith("0")
+                    fb, fl = S.format_i64(arg.data, width=width,
+                                          pad_zero=zero)
+                    if width and not zero:
+                        fb, fl = S.pad_left(fb, fl, width)
+                    val = CV(t=T.STR, sbytes=fb, slen=fl)
+                else:
+                    raise NotCompilable(f"str.format of {arg.t} "
+                                        f"with {spec!r}")
+                part = val if part is None else self._str_concat(part, val)
+            if part is not None:
+                out = part if out is None else self._str_concat(out, part)
+        if ai != len(args):
+            raise NotCompilable("str.format: surplus arguments")
+        return out if out is not None else const_cv("")
+
+    def _builtin_float(self, args: list[CV]) -> CV:
+        """float() of a number (the identity on f64; ints convert rounding
+        to nearest, as CPython does) or of a str (parse_f64, which leaves
+        what it does not evaluate exactly to CPython). A None row raises
+        TypeError."""
+        if len(args) != 1:
+            raise NotCompilable("float() arity")
+        v = args[0]
+        if v.is_const:
+            try:
+                return const_cv(float(v.const))
+            except (ValueError, TypeError, OverflowError):
+                pass   # every row raises: the vectorized path says so
+        v = self._unwrap_option(v, "float()")
+        if v.t is T.NULL:
+            return CV(t=T.F64, data=torch.zeros(self.ctx.b, dtype=F64,
+                                                device=self.ctx.device))
+        v = self.materialize(v)
+        if v.base is T.STR:
+            val, bad, route = S.parse_f64(v.sbytes, v.slen)
+            self.raise_where(bad, ExceptionCode.VALUEERROR)
+            self.raise_where(route, ExceptionCode.NORMALCASEVIOLATION)
+            return CV(t=T.F64, data=val)
+        if v.base in (T.F64, T.I64, T.BOOL):
+            return CV(t=T.F64, data=v.data.to(F64))
+        raise NotCompilable(f"float() of {v.t}")
 
     def _builtin_int(self, args: list[CV]) -> CV:
         if len(args) != 1:
@@ -855,6 +971,7 @@ _CMP_FN = {ast.Eq: torch.eq, ast.NotEq: torch.ne, ast.Lt: torch.lt,
            ast.LtE: torch.le, ast.Gt: torch.gt, ast.GtE: torch.ge}
 _FLIP = {ast.Eq: ast.Eq, ast.NotEq: ast.NotEq, ast.Lt: ast.Gt,
          ast.LtE: ast.GtE, ast.Gt: ast.Lt, ast.GtE: ast.LtE}
+_TWO53 = 1 << 53
 _TWO63 = 2.0 ** 63
 _BELOW_TWO63 = 9223372036854774784.0   # the largest double below 2**63
 

@@ -4,7 +4,8 @@
 The interpreter path runs rows the compiled path could not finish through
 ONE function built per stage (reference: PythonPipelineBuilder.cc, driven
 per row by ResolveTask). Each operator becomes a closure; the chain runs in
-a loop. The reference package adds a source-specialized tier on top of
+a loop, and the resolve and ignore operators guard the operator before
+them. The reference package adds a source-specialized tier on top of
 this for speed; this package keeps the closure tier only.
 
 Exceptions return as plain tuples (op_id, exc_name, row_value).
@@ -13,6 +14,7 @@ Exceptions return as plain tuples (op_id, exc_name, row_value).
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Any, Callable
 
 from ..core import typesys as T
@@ -37,8 +39,9 @@ def _make_cell_decoder(t: T.Type, null_values) -> Callable[[Any], Any]:
 
 
 def _build_op(op: L.LogicalOperator):
-    """apply_fn(row) -> row' | None (None = filtered out) for one
-    operator."""
+    """(apply_fn, inject_fn) for one operator. apply_fn(row) -> row' |
+    None (None = filtered out) runs the operator; inject_fn(v, row) wraps a
+    resolver's result v as the operator wraps its own output."""
     if isinstance(op, L.DecodeOperator):
         from ..runtime.columns import user_columns
 
@@ -49,7 +52,7 @@ def _build_op(op: L.LogicalOperator):
         def apply(row):
             return Row([d(v) for d, v in zip(decs, row.values)], out_cols)
 
-        return apply
+        return apply, None
     if isinstance(op, L.SelectColumnsOperator):
         out_cols = op.schema().columns
         idx_by_cols: dict = {}
@@ -61,24 +64,30 @@ def _build_op(op: L.LogicalOperator):
                     row.columns or ())
             return Row([row.values[i] for i in idx], out_cols)
 
-        return apply
+        return apply, None
+    if isinstance(op, L.RenameColumnOperator):
+        def apply(row):
+            return Row(row.values, op.rename(row.columns or ()))
+
+        return apply, None
     if isinstance(op, L.MapColumnOperator):
         f = op.udf.func
         col = op.column
 
-        def apply(row):
+        def inject(v, row):
             vals = list(row.values)
-            ci = row.columns.index(col)
-            vals[ci] = f(vals[ci])
+            vals[row.columns.index(col)] = v
             return Row(vals, row.columns)
 
-        return apply
+        def apply(row):
+            return inject(f(row.values[row.columns.index(col)]), row)
+
+        return apply, inject
     call = functools.partial(L.apply_udf_python, op.udf)
     if isinstance(op, L.WithColumnOperator):
         col = op.column
 
-        def apply(row):
-            v = call(row)
+        def inject(v, row):
             cols, vals = list(row.columns), list(row.values)
             if col in cols:
                 vals[cols.index(col)] = v
@@ -86,40 +95,78 @@ def _build_op(op: L.LogicalOperator):
                 cols.append(col)
                 vals.append(v)
             return Row(vals, cols)
-
-        return apply
-    if isinstance(op, L.MapOperator):
+    elif isinstance(op, L.MapOperator):
         cols = op.columns()
 
-        def apply(row):
-            v = call(row)
+        def inject(v, row):
             if isinstance(v, dict):
                 return Row(list(v.values()), list(v.keys()))
             return Row.from_value(v, cols)
+    elif isinstance(op, L.FilterOperator):
+        def inject(v, row):
+            return row if v else None
+    else:
+        raise TuplexException(f"interpreter: unsupported op {op!r}")
 
-        return apply
-    if isinstance(op, L.FilterOperator):
-        def apply(row):
-            return row if call(row) else None
+    def apply(row):
+        return inject(call(row), row)
 
-        return apply
-    raise TuplexException(f"interpreter: unsupported op {op!r}")
+    return apply, inject
 
 
 def build_python_pipeline(ops: list) -> Callable[[Row], tuple]:
-    """pipeline(row) -> ("ok", Row) | ("drop", None)
-    | ("exc", (op_id, exc_name, row_value))."""
-    steps = [(_build_op(op), op.id) for op in ops]
+    """pipeline(row) -> ("ok", Row) | ("drop", None) | ("ignored", None)
+    | ("exc", (op_id, exc_name, row_value)).
+
+    The resolve and ignore operators right after an operator guard it
+    (reference: ResolveTask): when it raises, the first guard whose class
+    matches either drops the row ("ignored") or puts its resolver's result
+    in place of the operator's; a resolver that raises passes the row to
+    the next guard, and a row no guard takes is an exception of the
+    operator."""
+    steps = []
+    for i, op in enumerate(ops):
+        if isinstance(op, L.RESOLVERS):
+            continue
+        guards = []
+        for r in itertools.takewhile(lambda o: isinstance(o, L.RESOLVERS),
+                                     ops[i + 1:]):
+            guards.append((r.exc_class, None if isinstance(
+                r, L.IgnoreOperator) else functools.partial(
+                    L.apply_udf_python, r.udf)))
+        apply_fn, inject_fn = _build_op(op)
+        steps.append((apply_fn, inject_fn, tuple(guards), op.id))
 
     def pipeline(row: Row) -> tuple:
-        for apply_fn, op_id in steps:
+        for apply_fn, inject_fn, guards, op_id in steps:
             try:
                 row2 = apply_fn(row)
             except Exception as e:
-                return ("exc", (op_id, type(e).__name__, row.unwrap()))
+                row2 = _resolve(e, guards, inject_fn, row)
+                if row2 is _IGNORED:
+                    return ("ignored", None)
+                if row2 is _UNRESOLVED:
+                    return ("exc", (op_id, type(e).__name__, row.unwrap()))
             if row2 is None:
                 return ("drop", None)
             row = row2
         return ("ok", row)
 
     return pipeline
+
+
+_IGNORED = object()
+_UNRESOLVED = object()
+
+
+def _resolve(e: Exception, guards, inject_fn, row: Row):
+    for exc_class, resolver in guards:
+        if not isinstance(e, exc_class):
+            continue
+        if resolver is None:
+            return _IGNORED
+        try:
+            return inject_fn(resolver(row), row)
+        except Exception:
+            continue   # the resolver raised: the next guard may take it
+    return _UNRESOLVED

@@ -15,7 +15,8 @@ Device work is queued without waiting: up to `_WINDOW` partitions are in
 flight while the host merges an earlier one. A stage that runs a fused
 whole-dataset fold fetches the fold's partials and per-row flags, not its
 rows (exec/aggexec.py `FoldPartial`); an AggregateStage runs on the
-AggregateExecutor. The reference package's
+AggregateExecutor. `run_plan` runs a job's stages in order, a JoinStage
+on the JoinExecutor after its build side's plan. The reference package's
 compiled general-case tier and exact-exception exit need its plan-time
 exception inventory and are not ported: every device-error row goes to the
 interpreter, which produces the same rows and exception records.
@@ -34,8 +35,9 @@ import torch
 from ..core import typesys as T
 from ..core.errors import NotCompilable
 from ..core.row import Row
-from ..plan.physical import (AggregateStage, TransformStage,
-                             runtime_output_columns)
+from ..plan import logical as L
+from ..plan.physical import (AggregateStage, JoinStage, TransformStage,
+                             plan_stages, runtime_output_columns)
 from ..runtime import columns as C
 
 _WINDOW = 2   # partitions dispatched ahead of the one being merged
@@ -63,6 +65,8 @@ class LocalBackend:
         self.device = device
 
     def execute(self, stage, partitions) -> StageResult:
+        """Run one transform or aggregate stage over its input partitions
+        (a join stage runs through `run_plan`, which has its build side)."""
         if isinstance(stage, AggregateStage):
             from .aggexec import AggregateExecutor
 
@@ -184,13 +188,17 @@ class LocalBackend:
         if fallback_idx:
             pipeline = stage.python_pipeline()
             order = sorted(fallback_idx)
+            ignored = 0
             for i, row in zip(order, C.decode_rows(part, order)):
                 status, payload = pipeline(row)
                 if status == "ok":
                     resolved[i] = payload
                 elif status == "exc":
                     exc_by_row[i] = ExceptionRecord(*payload)
+                elif status == "ignored":
+                    ignored += 1
             metrics["interpreter_rows"] = len(order)
+            metrics["ignored_rows"] = ignored
         exceptions = [exc_by_row[i] for i in sorted(exc_by_row)]
         metrics["slow_path_s"] = time.perf_counter() - t0
         if stage.fold_spec is None:
@@ -272,8 +280,59 @@ class LocalBackend:
         return outp
 
 
+def run_plan(context, sink: L.LogicalOperator) -> tuple[list, list]:
+    """(partitions, exception records) of the plan ending at `sink`: its
+    stages run in order, each over the partitions the one before it
+    returned (the first over its source's). A join stage first runs its
+    build side's plan, whose exceptions come before the join's own."""
+    exceptions: list = []
+    parts = None
+    for stage in plan_stages(sink):
+        if parts is None:
+            parts = source_partitions(context, stage.source)
+        if isinstance(stage, JoinStage):
+            from .joinexec import JoinExecutor
+
+            build, build_excs = run_plan(context, stage.op.right)
+            exceptions.extend(build_excs)
+            res = JoinExecutor(context.backend).execute(stage, parts, build)
+        else:
+            res = context.backend.execute(stage, parts)
+        context.metrics.record_stage(res.metrics)
+        exceptions.extend(res.exceptions)
+        parts = res.partitions
+    return parts, exceptions
+
+
+def source_partitions(context, src) -> list:
+    """Materialize a stage source into columnar partitions with one
+    dataset-wide string width."""
+    if isinstance(src, L.ParallelizeOperator):
+        schema = src.schema()
+        part_rows = _rows_per_partition(context, schema, len(src.data))
+        parts = [C.build_partition(src.data[off: off + part_rows], schema,
+                                   start_index=off)
+                 for off in range(0, len(src.data), part_rows)]
+    else:
+        parts = src.load_partitions()
+    return C.harmonize_partitions(parts)
+
+
+def _rows_per_partition(context, schema, total_rows: int) -> int:
+    psize = context.options_store.get_size("tuplex.partitionSize", 32 << 20)
+    # rough per-row cost: 8B per numeric leaf + 64B per str leaf
+    per_row = 0
+    for ci, ct in enumerate(schema.types):
+        for _, lt in C.flatten_type(ct, str(ci)):
+            base = lt.without_option() if lt.is_optional() else lt
+            per_row += 64 if base is T.STR else 8
+    per_row = max(per_row, 8)
+    return max(64, min(total_rows, psize // per_row))
+
+
 _SUMMED = ("fast_path_s", "slow_path_s", "interpreter_rows",
-           "device_error_rows", "fetch_bytes", "fetched_row_columns")
+           "ignored_rows", "device_error_rows", "fetch_bytes",
+           "fetched_row_columns")
 
 
 def _fold_in_order(stage: TransformStage, part: C.Partition,

@@ -1,0 +1,407 @@
+"""The flights cleaning pipeline (counterpart of
+`tuplex_tpu/models/flights.py`; reference: benchmarks/flights/runtuplex.py
+— column renames, city/state splits, time formatting, cancellation
+decoding, carrier join, two airport leftJoins with prefixes,
+defunct-airline filter, delay int-casts).
+
+The UDFs re-implement the published cleaning logic; the generators write
+the reference package's bytes for the same seed for the three inputs (the
+perf CSV, L_CARRIER_HISTORY.csv, GlobalAirportDatabase.txt). This package
+imports nothing of `tuplex_tpu`.
+"""
+
+from __future__ import annotations
+
+import random
+import string as _string
+
+PERF_COLS = ["year", "month", "day_of_month", "day_of_week",
+             "op_unique_carrier", "op_carrier_fl_num",
+             "origin", "origin_city_name", "dest", "dest_city_name",
+             "crs_dep_time", "crs_arr_time", "crs_elapsed_time",
+             "actual_elapsed_time", "air_time", "distance",
+             "cancelled", "cancellation_code", "diverted",
+             "div_reached_dest", "div_actual_elapsed_time",
+             "arr_delay", "dep_delay", "carrier_delay", "weather_delay",
+             "nas_delay", "security_delay", "late_aircraft_delay",
+             "taxi_in", "taxi_out"]
+
+AIRPORT_COLS = ["ICAOCode", "IATACode", "AirportName", "AirportCity",
+                "Country", "LatitudeDegrees", "LatitudeMinutes",
+                "LatitudeSeconds", "LatitudeDirection", "LongitudeDegrees",
+                "LongitudeMinutes", "LongitudeSeconds", "LongitudeDirection",
+                "Altitude", "LatitudeDecimal", "LongitudeDecimal"]
+
+_CARRIERS = [("UA", "United Air Lines Inc. (1931 - )"),
+             ("AA", "American Airlines Inc. (1930 - )"),
+             ("TW", "Trans World Airways LLC (1925 - 2001)"),
+             ("PA", "Pan American World Airways (1927 - 1991)"),
+             ("DL", "Delta Air Lines Inc. (1928 - )"),
+             ("WN", "Southwest Airlines Co. (1967 - )")]
+
+_AIRPORTS = [("KBOS", "BOS", "general edward lawrence logan intl", "boston"),
+             ("KJFK", "JFK", "john f kennedy intl", "new york"),
+             ("KLAX", "LAX", "los angeles intl", "los angeles"),
+             ("KORD", "ORD", "chicago o'hare intl", "chicago"),
+             ("KSFO", "SFO", "san francisco intl", "san francisco"),
+             ("KSEA", "SEA", "seattle tacoma intl", "seattle")]
+
+_CITY_STATE = [("Boston, MA", "BOS"), ("New York, NY", "JFK"),
+               ("Los Angeles, CA", "LAX"), ("Chicago, IL", "ORD"),
+               ("San Francisco, CA", "SFO"), ("Seattle, WA", "SEA"),
+               ("Nowhere, ZZ", "XXX")]  # XXX: airport missing -> leftJoin None
+
+
+# ---------------------------------------------------------------------------
+# generators
+# ---------------------------------------------------------------------------
+
+def generate_perf_csv(path: str, n: int, seed: int = 13) -> str:
+    import csv
+
+    rng = random.Random(seed)
+    with open(path, "w", newline="") as fp:
+        w = csv.writer(fp)
+        w.writerow(PERF_COLS)
+        for _ in range(n):
+            o_city, o_code = rng.choice(_CITY_STATE)
+            d_city, d_code = rng.choice(_CITY_STATE)
+            cancelled = 1.0 if rng.random() < 0.02 else 0.0
+            diverted = 1.0 if rng.random() < 0.02 else 0.0
+            ccode = rng.choice(["A", "B", "C", "D"]) if cancelled else ""
+            div_reached = "1.00" if diverted and rng.random() < 0.5 else \
+                ("0.00" if diverted else "")
+            elapsed = rng.randint(40, 500)
+            row = [
+                rng.choice([2000, 2005, 2019]), rng.randint(1, 12),
+                rng.randint(1, 28), rng.randint(1, 7),
+                rng.choice(_CARRIERS)[0], rng.randint(1, 9999),
+                o_code, o_city, d_code, d_city,
+                rng.randint(0, 23) * 100 + rng.randint(0, 59),
+                rng.randint(0, 23) * 100 + rng.randint(0, 59),
+                float(elapsed + rng.randint(-10, 10)),
+                "" if cancelled else float(elapsed),
+                "" if cancelled else float(elapsed - rng.randint(5, 30)),
+                float(rng.randint(80, 2700)),
+                cancelled, ccode, diverted,
+                div_reached,
+                float(elapsed + 60) if div_reached == "1.00" else "",
+                float(rng.randint(-20, 180)), float(rng.randint(-10, 120)),
+                float(rng.randint(0, 60)), float(rng.randint(0, 40)),
+                float(rng.randint(0, 50)), float(rng.randint(0, 10)),
+                float(rng.randint(0, 90)),
+                float(rng.randint(2, 40)), float(rng.randint(5, 50)),
+            ]
+            w.writerow(row)
+    return path
+
+
+def generate_carrier_csv(path: str) -> str:
+    import csv
+
+    with open(path, "w", newline="") as fp:
+        w = csv.writer(fp)
+        w.writerow(["Code", "Description"])
+        for code, desc in _CARRIERS:
+            w.writerow([code, desc])
+    return path
+
+
+def generate_airport_db(path: str) -> str:
+    rng = random.Random(3)
+    with open(path, "w") as fp:
+        for icao, iata, name, city in _AIRPORTS:
+            vals = [icao, iata, name, city, "usa",
+                    rng.randint(0, 89), rng.randint(0, 59), rng.randint(0, 59),
+                    "N", rng.randint(0, 179), rng.randint(0, 59),
+                    rng.randint(0, 59), "W", rng.randint(0, 2000),
+                    round(rng.uniform(-90, 90), 3),
+                    round(rng.uniform(-180, 180), 3)]
+            fp.write(":".join(str(v) for v in vals) + "\n")
+    return path
+
+
+# ---------------------------------------------------------------------------
+# the pipeline (reference: runtuplex.py:100-289)
+# ---------------------------------------------------------------------------
+
+def cleanCode(t):
+    if t["CancellationCode"] == "A":
+        return "carrier"
+    elif t["CancellationCode"] == "B":
+        return "weather"
+    elif t["CancellationCode"] == "C":
+        return "national air system"
+    elif t["CancellationCode"] == "D":
+        return "security"
+    else:
+        return None
+
+
+def divertedUDF(row):
+    diverted = row["Diverted"]
+    ccode = row["CancellationCode"]
+    if diverted:
+        return "diverted"
+    else:
+        if ccode:
+            return ccode
+        else:
+            return "None"
+
+
+def fillInTimesUDF(row):
+    ACTUAL_ELAPSED_TIME = row["ActualElapsedTime"]
+    if row["DivReachedDest"]:
+        if float(row["DivReachedDest"]) > 0:
+            return float(row["DivActualElapsedTime"])
+        else:
+            return ACTUAL_ELAPSED_TIME
+    else:
+        return ACTUAL_ELAPSED_TIME
+
+
+def extractDefunctYear(t):
+    x = t["Description"]
+    desc = x[x.rfind("-") + 1: x.rfind(")")].strip()
+    return int(desc) if len(desc) > 0 else None
+
+
+NUMERIC_COLS = ["ActualElapsedTime", "AirTime", "ArrDelay", "CarrierDelay",
+                "CrsElapsedTime", "DepDelay", "LateAircraftDelay", "NasDelay",
+                "SecurityDelay", "TaxiIn", "TaxiOut", "WeatherDelay"]
+
+OUTPUT_COLS = ["CarrierName", "CarrierCode", "FlightNumber", "Day", "Month",
+               "Year", "DayOfWeek", "OriginCity", "OriginState",
+               "OriginAirportIATACode", "OriginLongitude", "OriginLatitude",
+               "OriginAltitude", "DestCity", "DestState",
+               "DestAirportIATACode", "DestLongitude", "DestLatitude",
+               "DestAltitude", "Distance", "CancellationReason", "Cancelled",
+               "Diverted", "CrsArrTime", "CrsDepTime", "ActualElapsedTime",
+               "AirTime", "ArrDelay", "CarrierDelay", "CrsElapsedTime",
+               "DepDelay", "LateAircraftDelay", "NasDelay", "SecurityDelay",
+               "TaxiIn", "TaxiOut", "WeatherDelay", "AirlineYearFounded",
+               "AirlineYearDefunct"]
+
+
+def build_pipeline(ctx, perf_path: str, carrier_path: str, airport_path: str):
+    import string
+
+    df = ctx.csv(perf_path)
+    renamed = ["".join(w.capitalize() for w in c.split("_"))
+               for c in df.columns]
+    for i, c in enumerate(list(df.columns)):
+        df = df.renameColumn(c, renamed[i])
+
+    df_airports = ctx.csv(airport_path, columns=AIRPORT_COLS, delimiter=":",
+                          header=False, null_values=["", "N/a", "N/A"])
+    df_carrier = ctx.csv(carrier_path)
+
+    df = df.withColumn(
+        "OriginCity",
+        lambda x: x["OriginCityName"][: x["OriginCityName"].rfind(",")].strip())
+    df = df.withColumn(
+        "OriginState",
+        lambda x: x["OriginCityName"][x["OriginCityName"].rfind(",") + 1:].strip())
+    df = df.withColumn(
+        "DestCity",
+        lambda x: x["DestCityName"][: x["DestCityName"].rfind(",")].strip())
+    df = df.withColumn(
+        "DestState",
+        lambda x: x["DestCityName"][x["DestCityName"].rfind(",") + 1:].strip())
+    df = df.mapColumn(
+        "CrsArrTime",
+        lambda x: "{:02}:{:02}".format(int(x / 100), x % 100) if x else None)
+    df = df.mapColumn(
+        "CrsDepTime",
+        lambda x: "{:02}:{:02}".format(int(x / 100), x % 100) if x else None)
+    df = df.withColumn("CancellationCode", cleanCode)
+    df = df.mapColumn("Diverted", lambda x: True if x > 0 else False)
+    df = df.mapColumn("Cancelled", lambda x: True if x > 0 else False)
+    df = df.withColumn("CancellationReason", divertedUDF)
+    df = df.withColumn("ActualElapsedTime", fillInTimesUDF).ignore(TypeError)
+
+    df_carrier = df_carrier.withColumn(
+        "AirlineName",
+        lambda x: x["Description"][: x["Description"].rfind("(")].strip())
+    df_carrier = df_carrier.withColumn(
+        "AirlineYearFounded",
+        lambda x: int(x["Description"][x["Description"].rfind("(") + 1:
+                                       x["Description"].rfind("-")]))
+    df_carrier = df_carrier.withColumn("AirlineYearDefunct",
+                                       extractDefunctYear)
+
+    df_airports = df_airports.mapColumn(
+        "AirportName", lambda x: string.capwords(x) if x else None)
+    df_airports = df_airports.mapColumn(
+        "AirportCity", lambda x: string.capwords(x) if x else None)
+
+    df_all = df.join(df_carrier, "OpUniqueCarrier", "Code")
+    df_all = df_all.leftJoin(df_airports, "Origin", "IATACode",
+                             prefixes=(None, "Origin"))
+    df_all = df_all.leftJoin(df_airports, "Dest", "IATACode",
+                             prefixes=(None, "Dest"))
+
+    df_all = df_all.mapColumn("Distance", lambda x: x / 0.00062137119224)
+    df_all = df_all.mapColumn(
+        "AirlineName",
+        lambda s: s.replace("Inc.", "").replace("LLC", "")
+        .replace("Co.", "").strip())
+    df_all = (df_all
+              .renameColumn("OriginLongitudeDecimal", "OriginLongitude")
+              .renameColumn("OriginLatitudeDecimal", "OriginLatitude")
+              .renameColumn("DestLongitudeDecimal", "DestLongitude")
+              .renameColumn("DestLatitudeDecimal", "DestLatitude")
+              .renameColumn("OpUniqueCarrier", "CarrierCode")
+              .renameColumn("OpCarrierFlNum", "FlightNumber")
+              .renameColumn("DayOfMonth", "Day")
+              .renameColumn("AirlineName", "CarrierName")
+              .renameColumn("Origin", "OriginAirportIATACode")
+              .renameColumn("Dest", "DestAirportIATACode"))
+
+    def filterDefunctFlights(row):
+        year = row["Year"]
+        airlineYearDefunct = row["AirlineYearDefunct"]
+        if airlineYearDefunct:
+            return int(year) < int(airlineYearDefunct)
+        else:
+            return True
+
+    df_all = df_all.filter(filterDefunctFlights)
+    for c in NUMERIC_COLS:
+        df_all = df_all.mapColumn(c, lambda x: int(x) if x else 0)
+    return df_all.selectColumns(OUTPUT_COLS)
+
+
+# ---------------------------------------------------------------------------
+# pure-python reference (golden output + baseline)
+# ---------------------------------------------------------------------------
+
+def run_reference_python(perf_path: str, carrier_path: str,
+                         airport_path: str,
+                         exceptions: dict | None = None) -> list:
+    """The pipeline as a plain loop: its output rows in order. A row that
+    raises is skipped, a TypeError of fillInTimesUDF as the pipeline's
+    ignore(TypeError) drops it; any other exception is counted by class
+    into `exceptions` when one is given."""
+    import csv
+    import string
+
+    carriers = {}
+    with open(carrier_path, newline="") as fp:
+        for row in csv.DictReader(fp):
+            x = dict(row)
+            d = x["Description"]
+            x["AirlineName"] = d[: d.rfind("(")].strip()
+            x["AirlineYearFounded"] = int(d[d.rfind("(") + 1: d.rfind("-")])
+            desc = d[d.rfind("-") + 1: d.rfind(")")].strip()
+            x["AirlineYearDefunct"] = int(desc) if len(desc) > 0 else None
+            carriers[x["Code"]] = x
+
+    airports = {}
+    with open(airport_path) as fp:
+        for line in fp:
+            cells = line.rstrip("\n").split(":")
+            a = dict(zip(AIRPORT_COLS, cells))
+            for num_c in ("LatitudeDecimal", "LongitudeDecimal", "Altitude"):
+                a[num_c] = float(a[num_c]) if a[num_c] not in (
+                    "", "N/a", "N/A") else None
+            a["AirportName"] = string.capwords(a["AirportName"]) \
+                if a["AirportName"] else None
+            a["AirportCity"] = string.capwords(a["AirportCity"]) \
+                if a["AirportCity"] else None
+            airports[a["IATACode"]] = a
+
+    out = []
+    with open(perf_path, newline="") as fp:
+        for raw in csv.DictReader(fp):
+            try:
+                x = {}
+                for k, v in raw.items():
+                    nk = "".join(w.capitalize() for w in k.split("_"))
+                    x[nk] = v
+                # typed decode mirroring the csv speculation
+                for k in ("Year", "Month", "DayOfMonth", "DayOfWeek",
+                          "OpCarrierFlNum", "CrsDepTime", "CrsArrTime"):
+                    x[k] = int(x[k])
+                for k in ("CrsElapsedTime", "Distance", "Cancelled",
+                          "Diverted", "ArrDelay", "DepDelay", "CarrierDelay",
+                          "WeatherDelay", "NasDelay", "SecurityDelay",
+                          "LateAircraftDelay", "TaxiIn", "TaxiOut"):
+                    x[k] = float(x[k]) if x[k] != "" else None
+                for k in ("ActualElapsedTime", "AirTime",
+                          "DivActualElapsedTime"):
+                    x[k] = float(x[k]) if x[k] != "" else None
+                ocn = x["OriginCityName"]
+                x["OriginCity"] = ocn[: ocn.rfind(",")].strip()
+                x["OriginState"] = ocn[ocn.rfind(",") + 1:].strip()
+                dcn = x["DestCityName"]
+                x["DestCity"] = dcn[: dcn.rfind(",")].strip()
+                x["DestState"] = dcn[dcn.rfind(",") + 1:].strip()
+                t = x["CrsArrTime"]
+                x["CrsArrTime"] = "{:02}:{:02}".format(int(t / 100), t % 100) \
+                    if t else None
+                t = x["CrsDepTime"]
+                x["CrsDepTime"] = "{:02}:{:02}".format(int(t / 100), t % 100) \
+                    if t else None
+                code = x["CancellationCode"]
+                x["CancellationCode"] = {"A": "carrier", "B": "weather",
+                                         "C": "national air system",
+                                         "D": "security"}.get(code)
+                x["Diverted"] = True if x["Diverted"] > 0 else False
+                x["Cancelled"] = True if x["Cancelled"] > 0 else False
+                if x["Diverted"]:
+                    x["CancellationReason"] = "diverted"
+                else:
+                    x["CancellationReason"] = x["CancellationCode"] \
+                        if x["CancellationCode"] else "None"
+                try:
+                    if x["DivReachedDest"]:
+                        if float(x["DivReachedDest"]) > 0:
+                            x["ActualElapsedTime"] = float(
+                                x["DivActualElapsedTime"])
+                except TypeError:
+                    continue
+                # elapsed may be None when not diverted-and-reached
+                if x["ActualElapsedTime"] is None and not (
+                        x["DivReachedDest"] and
+                        float(x["DivReachedDest"]) > 0):
+                    pass
+                carrier = carriers.get(x["OpUniqueCarrier"])
+                if carrier is None:
+                    continue
+                x.update({k: carrier[k] for k in
+                          ("AirlineName", "AirlineYearFounded",
+                           "AirlineYearDefunct")})
+                for side, key in (("Origin", x["Origin"]),
+                                  ("Dest", x["Dest"])):
+                    ap = airports.get(key)
+                    for c in AIRPORT_COLS:
+                        if c == "IATACode":
+                            continue
+                        x[side + c] = ap[c] if ap else None
+                x["Distance"] = x["Distance"] / 0.00062137119224
+                x["AirlineName"] = x["AirlineName"].replace("Inc.", "") \
+                    .replace("LLC", "").replace("Co.", "").strip()
+                x["OriginLongitude"] = x["OriginLongitudeDecimal"]
+                x["OriginLatitude"] = x["OriginLatitudeDecimal"]
+                x["DestLongitude"] = x["DestLongitudeDecimal"]
+                x["DestLatitude"] = x["DestLatitudeDecimal"]
+                x["CarrierCode"] = x["OpUniqueCarrier"]
+                x["FlightNumber"] = x["OpCarrierFlNum"]
+                x["Day"] = x["DayOfMonth"]
+                x["CarrierName"] = x["AirlineName"]
+                x["OriginAirportIATACode"] = x["Origin"]
+                x["DestAirportIATACode"] = x["Dest"]
+                if x["AirlineYearDefunct"]:
+                    if not int(x["Year"]) < int(x["AirlineYearDefunct"]):
+                        continue
+                for c in NUMERIC_COLS:
+                    x[c] = int(x[c]) if x[c] else 0
+                out.append(tuple(x[c] for c in OUTPUT_COLS))
+            except Exception as e:
+                if exceptions is not None:
+                    name = type(e).__name__
+                    exceptions[name] = exceptions.get(name, 0) + 1
+                continue
+    return out

@@ -1,11 +1,11 @@
-"""TPC-H Q6 and Q1 over lineitem (counterpart of the Q6/Q1 half of
-`tuplex_tpu/models/tpch.py`; reference: benchmarks/tpch/Q06 — filter and
-aggregate pipelines used to compare against Hyper/Weld).
+"""TPC-H Q6, Q1 and Q19 (counterpart of `tuplex_tpu/models/tpch.py`;
+reference: benchmarks/tpch/Q06, Q19 — filter, join and aggregate pipelines
+used to compare against Hyper/Weld).
 
-A data generator for the seven lineitem columns these queries read (the
+Data generators for the lineitem and part columns these queries read (the
 reference package's bytes for the same seed), the queries as pipelines,
-and plain Python loops over the same file for checking them. Q19 needs a
-join and is not here. This package imports nothing of `tuplex_tpu`.
+and plain Python loops over the same files for checking them. This package
+imports nothing of `tuplex_tpu`.
 """
 
 from __future__ import annotations
@@ -125,6 +125,113 @@ def read_csv_rows(path: str, parsers) -> list:
         for rec in r:
             out.append(tuple(p(c) for p, c in zip(parsers, rec)))
     return out
+
+
+# --- Q19: discounted revenue over brand/container/quantity disjunction ------
+# (reference: benchmarks/tpch/Q19 — lineitem JOIN part with a three-branch
+# OR predicate; exercises join + compound filter + aggregate together)
+
+PART_COLUMNS = ["p_partkey", "p_brand", "p_size", "p_container"]
+LINEITEM19_COLUMNS = ["l_partkey", "l_quantity", "l_extendedprice",
+                      "l_discount", "l_shipinstruct", "l_shipmode"]
+
+_CONTAINERS_SM = ["SM CASE", "SM BOX", "SM PACK", "SM PKG"]
+_CONTAINERS_MED = ["MED BAG", "MED BOX", "MED PKG", "MED PACK"]
+_CONTAINERS_LG = ["LG CASE", "LG BOX", "LG PACK", "LG PKG"]
+
+
+def gen_part_rows(n: int, seed: int = 19):
+    rng = random.Random(seed)
+    brands = [f"Brand#{i}{j}" for i in range(1, 6) for j in range(1, 6)]
+    containers = (_CONTAINERS_SM + _CONTAINERS_MED + _CONTAINERS_LG +
+                  ["JUMBO JAR", "WRAP CAN"])
+    return [(k, rng.choice(brands), rng.randint(1, 50),
+             rng.choice(containers)) for k in range(1, n + 1)]
+
+
+def gen_lineitem19_rows(n: int, n_parts: int, seed: int = 23):
+    rng = random.Random(seed)
+    modes = ["AIR", "AIR REG", "RAIL", "TRUCK", "SHIP"]
+    instr = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+    return [(rng.randint(1, n_parts), float(rng.randint(1, 50)),
+             round(rng.uniform(900.0, 105000.0), 2),
+             round(rng.uniform(0.0, 0.1), 2),
+             rng.choice(instr), rng.choice(modes)) for _ in range(n)]
+
+
+def generate_q19_csvs(part_path: str, lineitem_path: str, n_parts: int,
+                      n_items: int, seed: int = 19) -> None:
+    import csv
+
+    with open(part_path, "w", newline="") as fp:
+        w = csv.writer(fp)
+        w.writerow(PART_COLUMNS)
+        w.writerows(gen_part_rows(n_parts, seed))
+    with open(lineitem_path, "w", newline="") as fp:
+        w = csv.writer(fp)
+        w.writerow(LINEITEM19_COLUMNS)
+        w.writerows(gen_lineitem19_rows(n_items, n_parts, seed + 4))
+
+
+def _q19_pred(x) -> bool:
+    return ((x["p_brand"] == "Brand#12"
+             and x["p_container"] in ("SM CASE", "SM BOX", "SM PACK",
+                                      "SM PKG")
+             and 1 <= x["l_quantity"] <= 11 and 1 <= x["p_size"] <= 5)
+            or (x["p_brand"] == "Brand#23"
+                and x["p_container"] in ("MED BAG", "MED BOX", "MED PKG",
+                                         "MED PACK")
+                and 10 <= x["l_quantity"] <= 20 and 1 <= x["p_size"] <= 10)
+            or (x["p_brand"] == "Brand#34"
+                and x["p_container"] in ("LG CASE", "LG BOX", "LG PACK",
+                                         "LG PKG")
+                and 20 <= x["l_quantity"] <= 30
+                and 1 <= x["p_size"] <= 15))
+
+
+def q19(ctx, part_path: str, lineitem_path: str):
+    """SELECT sum(l_extendedprice * (1 - l_discount)) over the brand/
+    container/quantity disjunction, shipmode AIR/AIR REG, DELIVER IN
+    PERSON."""
+    part = ctx.csv(part_path)
+    li = (ctx.csv(lineitem_path)
+          .filter(lambda x: x["l_shipinstruct"] == "DELIVER IN PERSON")
+          .filter(lambda x: x["l_shipmode"] == "AIR" or
+                  x["l_shipmode"] == "AIR REG"))
+    joined = li.join(part, "l_partkey", "p_partkey")
+    return (joined
+            .filter(_q19_pred)
+            .aggregate(lambda a, b: a + b,
+                       lambda a, x: a + x["l_extendedprice"] *
+                       (1 - x["l_discount"]), 0.0))
+
+
+def run_reference_q19(part_path: str, lineitem_path: str) -> float:
+    """File-based python baseline doing the SAME csv parse work."""
+    parts = read_csv_rows(part_path, (int, str, int, str))
+    lis = read_csv_rows(lineitem_path,
+                        (int, float, float, float, str, str))
+    return q19_python(parts, lis)
+
+
+def q19_python(part_rows, li_rows) -> float:
+    parts = {r[0]: r for r in part_rows}
+    total = 0.0
+    for (pk, qty, price, disc, instr, mode) in li_rows:
+        if instr != "DELIVER IN PERSON" or mode not in ("AIR", "AIR REG"):
+            continue
+        p = parts.get(pk)
+        if p is None:
+            continue
+        _, brand, size, container = p
+        if ((brand == "Brand#12" and container in _CONTAINERS_SM
+             and 1 <= qty <= 11 and 1 <= size <= 5)
+                or (brand == "Brand#23" and container in _CONTAINERS_MED
+                    and 10 <= qty <= 20 and 1 <= size <= 10)
+                or (brand == "Brand#34" and container in _CONTAINERS_LG
+                    and 20 <= qty <= 30 and 1 <= size <= 15)):
+            total += price * (1 - disc)
+    return total
 
 
 # --- dirty cells -------------------------------------------------------------

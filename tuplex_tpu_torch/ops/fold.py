@@ -2,7 +2,8 @@
 min and max per segment (counterpart of the reference package's
 `jnp.sum` / `jax.ops.segment_sum` calls in `exec/aggexec.py` and its key
 factorization, `runtime/columns.py` `key_signature_matrix` and
-`unique_rows`).
+`unique_rows`). A key's canonical bytes are the join key's
+(`runtime/columns.py` `canonical_key_bytes`).
 
 Every reduction has one fixed order of operations, given the shapes: a
 float sum is the same bits run to run, and the same on the CPU and the
@@ -86,18 +87,16 @@ def factorize(sig: torch.Tensor, ok: torch.Tensor):
 
 def signature(cvs, b: int, device) -> torch.Tensor:
     """[b, K] uint8 rows whose bytes are equal exactly when the key values
-    (a list of CVs) are equal in Python: None slots and bytes past a
-    string's length are zero, float -0.0 is 0.0, and a NaN gets its row
-    number so that no two NaN keys meet (Python's NaN equals nothing but
-    itself, and each row's NaN is a new object)."""
+    (a list of CVs) are equal in Python: each leaf canonical by the join
+    key's rules (`runtime/columns.py` `canonical_key_bytes`), and a NaN
+    tagged with its row number so that no two NaN keys meet (Python's NaN
+    equals nothing but itself, and each row's NaN is a new object)."""
     from ..compiler.values import materialize
     from ..core import typesys as T
+    from ..runtime.columns import canonical_key_bytes
 
     pieces: list = []
     row_no = torch.arange(b, dtype=torch.int64, device=device)
-
-    def as_bytes(x: torch.Tensor) -> torch.Tensor:
-        return x.contiguous().view(torch.uint8).reshape(b, -1)
 
     def add(cv, valid=None):
         cv = materialize(cv, b, device)
@@ -107,24 +106,13 @@ def signature(cvs, b: int, device) -> torch.Tensor:
             for e in cv.elts:
                 add(e, valid)
         elif cv.base is T.STR:
-            w = cv.sbytes.shape[1]
-            keep = torch.arange(w, device=device)[None, :] < cv.slen[:, None]
-            ln = cv.slen.to(torch.int32)
-            if valid is not None:
-                keep = keep & valid[:, None]
-                ln = torch.where(valid, ln, 0)
-            pieces.append(torch.where(keep, cv.sbytes, 0).to(torch.uint8))
-            pieces.append(as_bytes(ln))
+            pieces.extend(canonical_key_bytes(bytes_=cv.sbytes,
+                                              lens=cv.slen, valid=valid))
+            return
         elif cv.base in (T.BOOL, T.I64, T.F64):
-            x = cv.data if valid is None else \
-                torch.where(valid, cv.data, torch.zeros_like(cv.data))
-            if x.dtype == torch.bool:
-                x = x.to(torch.uint8)[:, None]
-            elif x.is_floating_point():
-                nan = torch.isnan(x)
-                x = torch.where((x == 0) | nan, 0.0, x)
-                pieces.append(as_bytes(torch.where(nan, row_no, -1)))
-            pieces.append(x if x.dtype == torch.uint8 else as_bytes(x))
+            pieces.extend(canonical_key_bytes(data=cv.data, valid=valid,
+                                              nan_rows=row_no))
+            return
         elif cv.base is not T.NULL:
             from ..core.errors import NotCompilable
 

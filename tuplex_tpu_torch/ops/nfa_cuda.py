@@ -7,93 +7,45 @@ the card it is limited by the per-byte automaton step, a fixed number of
 shared-memory table lookups per byte. See the source for its design.
 
 The library is compiled by `nvcc` for sm_90a at first use into
-`tuplex_tpu_torch/_build/` (a plain C interface loaded with ctypes), so a
-checkout needs nothing prebuilt. `launches` counts kernel launches; nothing
-else adds to it.
+`tuplex_tpu_torch/_build/` (a plain C interface loaded with ctypes;
+ops/cuda_build.py), so a checkout needs nothing prebuilt. `launches` counts
+kernel launches; nothing else adds to it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import numpy as np
 import torch
 
+from .cuda_build import CudaLibrary, current_stream
 from .nfa import follow_chunks
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "nfa_scan.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-
 launches = 0
-build_log = ""      # nvcc's output (-Xptxas -v) from the last build here
-
-_lib = None
-_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the NFA scan kernel is built "
-                           "from source at first use")
-    return found
+def _bind(lib) -> None:
+    fn = lib.tpx_nfa_scan
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,          # bytes, lens
+        ctypes.c_longlong, ctypes.c_longlong,      # n, w
+        ctypes.c_void_p, ctypes.c_int,             # tables, n_chunks
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ^, $, nullable
+        ctypes.c_void_p, ctypes.c_void_p,          # out, stream
+    ]
+    fn.restype = ctypes.c_int
+    lib.tpx_nfa_rows_per_block.argtypes = []
+    lib.tpx_nfa_rows_per_block.restype = ctypes.c_int
 
 
-def build() -> str:
-    """Compile the kernel library if this source has not been built yet;
-    returns the library path. The file name carries a hash of the source,
-    so an edited kernel is rebuilt."""
-    with open(SOURCE, "rb") as fp:
-        digest = hashlib.sha256(fp.read()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libnfa_scan_{digest}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    global build_log
-    build_log = res.stdout + res.stderr
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.tpx_nfa_scan
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p,          # bytes, lens
-                ctypes.c_longlong, ctypes.c_longlong,      # n, w
-                ctypes.c_void_p, ctypes.c_int,             # tables, n_chunks
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ^, $, nullable
-                ctypes.c_void_p, ctypes.c_void_p,          # out, stream
-            ]
-            fn.restype = ctypes.c_int
-            lib.tpx_nfa_rows_per_block.argtypes = []
-            lib.tpx_nfa_rows_per_block.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("nfa_scan.cu", _bind)
+build = LIBRARY.build
 
 
 def rows_per_block() -> int:
     """Rows one block of the kernel scans (one thread each)."""
-    return _load().tpx_nfa_rows_per_block()
+    return LIBRARY.load().tpx_nfa_rows_per_block()
 
 
 def pack_tables(tables) -> np.ndarray:
@@ -140,14 +92,12 @@ def match_cuda(tables, table_buf: torch.Tensor, bytes_: torch.Tensor,
     out = torch.empty(n, dtype=torch.bool, device=bytes_.device)
     if n == 0:
         return out
-    fn = _load().tpx_nfa_scan
+    fn = LIBRARY.load().tpx_nfa_scan
     with torch.cuda.device(bytes_.device):
-        # the raw handle, without building a torch.cuda.Stream per call
-        stream = torch._C._cuda_getCurrentRawStream(bytes_.device.index)
         rc = fn(bytes_.data_ptr(), lens.data_ptr(), n, w,
                 table_buf.data_ptr(), n_chunks, int(tables.anchored_start),
                 int(tables.anchored_end), int(tables.nullable),
-                out.data_ptr(), stream)
+                out.data_ptr(), current_stream(bytes_.device))
     if rc != 0:
         raise RuntimeError(f"nfa_scan launch failed: cudaError {rc}")
     launches += 1

@@ -170,6 +170,84 @@ def upper(bytes_, lens):
     return torch.where(is_lo, bytes_ - 32, bytes_).to(U8), lens
 
 
+def _py_space(bytes_):
+    """The ASCII bytes str.isspace() holds for (\\t \\n \\v \\f \\r, the
+    separators \\x1c-\\x1f, space): what str.strip() and str.split()
+    remove. (int() and float() strip a smaller set, `_is_space`.)"""
+    return (bytes_ == 32) | ((bytes_ >= 9) & (bytes_ <= 13)) | \
+        ((bytes_ >= 28) & (bytes_ <= 31))
+
+
+def strip(bytes_, lens, chars=None, left: bool = True, right: bool = True):
+    """str.strip / lstrip / rstrip (`left`, `right`): without `chars` the
+    ASCII whitespace of `_py_space`, else the bytes of the ASCII string
+    `chars`. Whitespace beyond ASCII (U+0085, U+00A0, ...) is not seen:
+    the caller sends rows with non-ASCII bytes to the interpreter."""
+    w = bytes_.shape[1]
+    pos = torch.arange(w, dtype=I32, device=bytes_.device)[None, :]
+    if chars is None:
+        strippable = _py_space(bytes_)
+    else:
+        strippable = torch.zeros_like(bytes_, dtype=torch.bool)
+        for c in const_bytes(chars).tolist():
+            strippable = strippable | (bytes_ == c)
+    keep = (pos < lens[:, None]) & ~strippable
+    if left:
+        first = torch.where(keep, pos, w).min(dim=1).values
+        start = torch.where(first >= w, lens, first)
+    else:
+        start = torch.zeros_like(lens)
+    if right:
+        last = torch.where(keep, pos, -1).max(dim=1).values
+        stop = torch.where(last < 0, start, last + 1)
+    else:
+        stop = lens
+    return slice_(bytes_, lens, start.to(I32),
+                  torch.maximum(stop, start).to(I32))
+
+
+def capwords(bytes_, lens):
+    """string.capwords(s), ' '.join(w.capitalize() for w in s.split()),
+    on ASCII: the words (runs outside `_py_space`) with their first byte
+    upper case and the rest lower case, one space between them, none at
+    the ends. The caller sends rows with non-ASCII bytes to the
+    interpreter."""
+    n, w = bytes_.shape
+    dev = bytes_.device
+    pos = torch.arange(w, dtype=I32, device=dev)[None, :]
+    inside = pos < lens[:, None]
+    space = _py_space(bytes_) & inside
+    word = inside & ~space
+    prev_word = torch.nn.functional.pad(word[:, :-1], (1, 0))
+    low, _ = lower(bytes_, lens)
+    up = word & ~prev_word & (low >= 97) & (low <= 122)
+    cased = torch.where(up, low - 32, low)
+    # a space right after a word, with another word later, becomes the
+    # single separator
+    words_after = word.sum(dim=1, keepdim=True) - torch.cumsum(word, dim=1)
+    sep = space & prev_word & (words_after > 0)
+    kept = word | sep
+    dest = torch.cumsum(kept.to(I32), dim=1) - kept.to(I32)
+    out = _scatter_cols(torch.zeros_like(bytes_),
+                        torch.where(kept, dest, w),
+                        torch.where(sep, 32, cased), w)
+    return out.to(U8), kept.sum(dim=1).to(I32)
+
+
+def pad_left(bytes_, lens, width: int):
+    """s.rjust(width): the string moved right to end at `width`, the gap
+    filled with spaces (longer strings unchanged)."""
+    n, w = bytes_.shape
+    wout = max(w, width)
+    pos = torch.arange(wout, dtype=I32, device=bytes_.device)[None, :]
+    gap = torch.clamp(width - lens, min=0)[:, None]
+    src = take_cols(bytes_, torch.clamp(pos - gap, 0, w - 1))
+    out_len = torch.maximum(lens, torch.full_like(lens, width))
+    out = torch.where(pos < gap, 32, src)
+    return torch.where(pos < out_len[:, None], out, 0).to(U8), \
+        out_len.to(I32)
+
+
 def _shift_right(mask, j: int):
     """mask moved j columns to the right (zeros shifted in)."""
     if j == 0:

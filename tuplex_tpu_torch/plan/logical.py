@@ -1,7 +1,8 @@
 """Logical operator DAG (counterpart of `tuplex_tpu/plan/logical.py`, the
 operators this package supports: parallelize, map, filter, withColumn,
-mapColumn, selectColumns and the CSV cell decode; the aggregates are in
-plan/aggregates.py).
+mapColumn, selectColumns, renameColumn, resolve, ignore and the CSV cell
+decode; the aggregates are in plan/aggregates.py, the join in
+plan/joins.py).
 
 Schema inference IS the sample tracer: operators run their UDF on the
 parent's sample rows via CPython and speculate the normal-case output type
@@ -287,6 +288,80 @@ class SelectColumnsOperator(LogicalOperator):
         cols = self.schema().columns
         return [Row([r.values[i] for i in idx], cols)
                 for r in self.parent.cached_sample()]
+
+
+class RenameColumnOperator(LogicalOperator):
+    """Renames one column, by name or position; the rows are untouched, so
+    it costs no stage work (reference: logical/RenameColumnOperator.cc)."""
+
+    def __init__(self, parent: LogicalOperator, old, new: str):
+        super().__init__([parent])
+        self.old = old
+        self.new = new
+
+    def rename(self, names: Sequence[str]) -> tuple:
+        """`names` with the renamed column's new name."""
+        if isinstance(self.old, int):
+            i = self.old
+        elif self.old in names:
+            i = list(names).index(self.old)
+        else:
+            raise TuplexException(f"unknown column {self.old!r}")
+        cols = list(names)
+        cols[i] = self.new
+        return tuple(cols)
+
+    def schema(self) -> T.RowType:
+        ps = self.parent.schema()
+        return T.row_of(self.rename(ps.columns or ()), ps.types)
+
+    def sample(self) -> list[Row]:
+        s = self.schema()
+        return [Row(r.values, s.columns) for r in self.parent.cached_sample()]
+
+
+class ResolveOperator(LogicalOperator):
+    """Resolves rows whose previous operator raised `exc_class`: the
+    resolver's result takes the place of that operator's (reference:
+    logical/ResolveOperator.cc; dataset.py:162). It runs on the
+    interpreter, where every row that raised goes."""
+
+    def __init__(self, parent: LogicalOperator, exc_class: type,
+                 func: Callable):
+        super().__init__([parent])
+        self.exc_class = exc_class
+        self.udf = get_udf_source(func)
+
+    def schema(self) -> T.RowType:
+        return self.parent.schema()
+
+    def columns(self):
+        return self.parent.columns()
+
+    def sample(self) -> list[Row]:
+        return self.parent.cached_sample()
+
+
+class IgnoreOperator(LogicalOperator):
+    """Drops the rows whose previous operator raised `exc_class`; they are
+    counted apart and are not exceptions of the job (reference:
+    logical/IgnoreOperator.cc; dataset.py:319)."""
+
+    def __init__(self, parent: LogicalOperator, exc_class: type):
+        super().__init__([parent])
+        self.exc_class = exc_class
+
+    def schema(self) -> T.RowType:
+        return self.parent.schema()
+
+    def columns(self):
+        return self.parent.columns()
+
+    def sample(self) -> list[Row]:
+        return self.parent.cached_sample()
+
+
+RESOLVERS = (ResolveOperator, IgnoreOperator)
 
 
 class DecodeOperator(LogicalOperator):

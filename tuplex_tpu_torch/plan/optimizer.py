@@ -101,7 +101,8 @@ def op_reads(op: L.LogicalOperator, current_columns) -> Optional[set[str]]:
             else:
                 out.add(c)
         return out
-    if isinstance(op, L.DecodeOperator):
+    if isinstance(op, (L.DecodeOperator, L.RenameColumnOperator,
+                       L.IgnoreOperator)):
         return set()
     return ALL
 
@@ -152,6 +153,10 @@ def required_source_columns(source_columns: tuple[str, ...],
                    for c in op.selected]
             alias = {c: alias.get(c) for c in sel}
             cur_cols = sel
+        elif isinstance(op, L.RenameColumnOperator):
+            new_cols = list(op.rename(cur_cols))
+            alias = {n: alias.get(o) for o, n in zip(cur_cols, new_cols)}
+            cur_cols = new_cols
     live = alias if output_required is None else \
         {c: alias.get(c) for c in output_required}
     required.update(s for s in live.values() if s)

@@ -4,8 +4,8 @@ of `tuplex_tpu/plan/physical.py`).
 A TransformStage turns into ONE Python function over a staged column batch:
 every fused operator contributes torch ops in order (reference:
 StageBuilder.cc fuses a stage's operators into one compiled function). The
-aggregates break the pipeline: a plan is a chain of TransformStages and
-AggregateStages. A CSV source's cell decode is the first stage's first
+aggregates and the join break the pipeline: a plan is a chain of
+TransformStages, AggregateStages and JoinStages. A CSV source's cell decode is the first stage's first
 operator: cells parse to their speculated types on the device, and only
 the columns the plan reads are split out of the file.
 
@@ -148,6 +148,18 @@ class AggregateStage:
         self.source = source
 
 
+class JoinStage:
+    """A pipeline breaker: a join of every row of its input (the probe
+    side) with the build side, whose own plan runs first (reference:
+    PhysicalPlan.cc:145-178). `source` is set when the join reads a source
+    directly."""
+
+    def __init__(self, op: L.LogicalOperator,
+                 source: Optional[L.LogicalOperator] = None):
+        self.op = op
+        self.source = source
+
+
 # ---------------------------------------------------------------------------
 # aggregate folds on the device
 # ---------------------------------------------------------------------------
@@ -217,6 +229,14 @@ def _emit_op(ctx: EmitCtx, op: L.LogicalOperator, row: CV, keep):
         idx = op.resolve_indices(row.names)
         return tuple_cv([row.elts[i] for i in idx],
                         names=op.schema().columns), keep
+    if isinstance(op, L.RenameColumnOperator):
+        if row.elts is None or row.names is None:
+            raise NotCompilable("renameColumn on an unnamed row")
+        return tuple_cv(row.elts, names=op.rename(row.names)), keep
+    if isinstance(op, L.RESOLVERS):
+        # guards of the operator before: its rows that raised re-run on
+        # the interpreter, where they apply
+        return row, keep
     em = Emitter(ctx, op.udf.globals)
     if isinstance(op, L.MapOperator):
         res = em.eval_udf(op.udf, [row])
@@ -314,7 +334,9 @@ def runtime_output_columns(stage: TransformStage):
                 names = tuple(names) + (op.column,)
         elif isinstance(op, L.DecodeOperator):
             names = user_columns(op.declared)
-        # filter and mapColumn keep the names
+        elif isinstance(op, L.RenameColumnOperator) and names is not None:
+            names = op.rename(names)
+        # filter, mapColumn, resolve and ignore keep the names
     return names
 
 
@@ -442,6 +464,7 @@ def plan_stages(sink: L.LogicalOperator) -> list:
     cur: list[L.LogicalOperator] = []
     inp: L.LogicalOperator = node
     from .aggregates import AggregateOperator, device_fold_spec
+    from .joins import JoinOperator
 
     for op in chain:
         if not op.is_breaker():
@@ -454,7 +477,8 @@ def plan_stages(sink: L.LogicalOperator) -> list:
         if cur or spec is not None:
             stages.append(TransformStage(inp, cur))
             stages[-1].fold_spec = spec
-        stages.append(AggregateStage(op, source=None if stages else inp))
+        kind = JoinStage if isinstance(op, JoinOperator) else AggregateStage
+        stages.append(kind(op, source=None if stages else inp))
         cur, inp = [], op
     if cur or not stages:
         stages.append(TransformStage(inp, cur))

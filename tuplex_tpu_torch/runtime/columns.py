@@ -557,6 +557,103 @@ def gather_partition(part: Partition, out_positions: np.ndarray,
                      start_index=part.start_index)
 
 
+# ---------------------------------------------------------------------------
+# key signatures (the join's keys as bytes, on the device)
+# ---------------------------------------------------------------------------
+
+def canonical_key_bytes(data=None, bytes_=None, lens=None, valid=None,
+                        nan_rows=None) -> Optional[list]:
+    """The canonical signature pieces (uint8 [N, k] tensors) of one key
+    leaf, as torch ops on the leaf's device: numeric `data`, or str
+    `bytes_` and `lens`, each with an optional `valid`. Byte equality
+    implies Python equality: None slots are zeroed (CSV null values keep
+    their cell bytes, merged Options the dead branch's data), str bytes
+    past the length are zeroed (stage outputs carry stale padding), -0.0
+    becomes 0.0, and the valid byte follows. A NaN equals nothing: with
+    `nan_rows` ([N] int64, one distinct value per row) a NaN row carries
+    its value ahead of the float, and every other row -1, so no two NaN
+    rows meet; without it a NaN makes the result None."""
+    pieces = []
+    if data is not None:
+        n = data.shape[0]
+        if valid is not None:
+            # as numpy's where with a 0: an Option[bool] widens to int64
+            data = torch.where(valid, data, 0)
+        if data.is_floating_point():
+            nan = torch.isnan(data)
+            if nan_rows is None:
+                if bool(nan.any()):
+                    return None
+            else:
+                pieces.append(torch.where(nan, nan_rows, -1).contiguous()
+                              .view(torch.uint8).reshape(n, 8))
+            data = torch.where((data == 0) | nan, torch.zeros_like(data),
+                               data)
+        pieces.append(data.contiguous().view(torch.uint8).reshape(n, -1))
+    else:
+        n, w = bytes_.shape
+        if valid is not None:
+            bytes_ = torch.where(valid[:, None], bytes_,
+                                 torch.zeros_like(bytes_))
+            lens = torch.where(valid, lens, torch.zeros_like(lens))
+        pos = torch.arange(w, dtype=torch.int32, device=bytes_.device)
+        pieces.append(torch.where(pos[None, :] < lens[:, None], bytes_,
+                                  torch.zeros_like(bytes_)).to(torch.uint8))
+        pieces.append(lens.to(torch.int32).contiguous().view(torch.uint8)
+                      .reshape(n, 4))
+    if valid is not None:
+        pieces.append(valid.contiguous().view(torch.uint8).reshape(n, 1))
+    return pieces
+
+
+def key_signature_matrix(part: Partition, cis: Sequence[int],
+                         device=None) -> Optional[torch.Tensor]:
+    """[N, W] uint8 canonical byte signatures of the key columns `cis`, on
+    `device` (the CPU by default), by the rules of `canonical_key_bytes`;
+    the reference package's `key_signature_matrix`. None when a leaf is
+    not signature-comparable (boxed objects) or a float key is NaN."""
+    def put(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+
+    pieces: list = []
+    for ci in cis:
+        for path, _lt in flatten_type(part.schema.types[ci], str(ci)):
+            leaf = part.leaves.get(path)
+            if isinstance(leaf, NumericLeaf):
+                got = canonical_key_bytes(data=put(leaf.data),
+                                          valid=put(leaf.valid))
+            elif isinstance(leaf, StrLeaf):
+                got = canonical_key_bytes(bytes_=put(leaf.bytes),
+                                          lens=put(leaf.lengths),
+                                          valid=put(leaf.valid))
+            elif isinstance(leaf, NullLeaf):
+                got = [torch.zeros((part.num_rows, 1), dtype=torch.uint8,
+                                   device=device)]
+            else:
+                return None
+            if got is None:
+                return None
+            pieces.extend(got)
+    if not pieces:
+        return None
+    return torch.cat(pieces, dim=1)
+
+
+def pack_sig_words(sig: torch.Tensor) -> torch.Tensor:
+    """[N, W] uint8 signatures -> [N, ceil(W / 8)] words, the bytes packed
+    big-endian (zero-padded to whole words) and held as int64 bit patterns:
+    word order as unsigned 64-bit integers, first word first, is the
+    signatures' byte order. A reinterpretation of the bytes, on their
+    device (the reference package's `_pack_sig_words`)."""
+    n, w = sig.shape
+    nw = max(1, -(-w // 8))
+    if w < nw * 8:
+        sig = torch.nn.functional.pad(sig, (0, nw * 8 - w))
+    return sig.reshape(n, nw, 8).flip(-1).contiguous().view(
+        torch.int64).reshape(n, nw)
+
+
 def harmonize_partitions(parts: list) -> list:
     """Pad every partition's str leaves to the dataset-wide bucketed width
     so all partitions stage to the same shapes."""
