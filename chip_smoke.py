@@ -42,23 +42,27 @@ Phases, in order; any failure ends the run with a nonzero exit:
      over 1,000,000 generated rows (seed 23), equal in order to the plain
      loop;
   8. the join probe kernel (csrc/join_probe.cu) against its plain torch
-     version on two seeded batches of string keys through the join's own
-     key signatures, None keys and probe matrices wider than the build's
-     among them: 1,000,000 probes into 9,300 keys of two words (about the
-     rows of the public GlobalAirportDatabase.txt) and 1,000,000 into
-     200,000 keys of three words; results must match exactly. Kernel,
-     plain version and torch.searchsorted on one-word keys of the same
-     sizes are timed;
+     version (ops/join.py lower_bound_plain) on seeded batches through the
+     join's own key signatures: string keys, None keys and probe matrices
+     wider than the build's among them, 1,000,000 probes into 9,300 keys
+     of two words (about the rows of the public GlobalAirportDatabase.txt)
+     and into 200,000 keys of three words; int keys, 1,000,000 probes into
+     9,300 and into 200,000 keys of one word. Results must match exactly.
+     The kernel, its table copy alone, the plain version, the index's
+     build and torch.searchsorted on the first words (on one-word keys the
+     same lower bound) are timed;
   9. the flights pipeline over 1,000,000 generated perf rows (seed 13,
      all 30 columns; about a month and a half of the public BTS on-time
      table) with the six-row carrier and airport files as build sides,
      through Context() on the card, checked against the plain Python loop
      (rows in order, values exact, exception counts); every join probed on
      the card, the kernel launched on the path, and held against its plain
-     version on the probes the path gave it;
+     version on the largest probe the path gave it;
  10. TPC-H Q19 over 200,000 parts (SF1's part table) and 1,000,000
      lineitems (seed 19), twice, within 1e-9 relative of the plain loop and
-     the same bits both runs, every row probed on the card;
+     the same bits both runs, every row probed on the card through the
+     kernel (one-word keys), which is held against its plain version and
+     torch.searchsorted on the largest probe the path gave it;
  11. every entry point of the native module against its Python path on
      small inputs. The run fails unless the main path (phases 4-7) called
      the native entry points it uses and every entry point was called.
@@ -612,24 +616,45 @@ def key_words(rng, n: int, width: int, leaf_width: int, dev,
 def probe_phase(rng, u: int, width: int, dev):
     """The kernel against its plain version on u distinct build keys and
     PROBES probe keys (about half matching, probe matrix 4 bytes wider
-    than the build's); times both and torch.searchsorted on one-word keys
-    of the same sizes. Returns (largest difference, numbers)."""
+    than the build's); times both and torch.searchsorted on the first
+    words. Returns (largest difference, numbers)."""
     words, b, lens = key_words(rng, u * 5 // 4, width, width, dev)
     flat = torch.unique(J.flip(words), dim=0)     # sorted, unique
     keep = torch.randperm(len(flat), device=dev)[:u].sort().values
     build = J.flip(flat[keep]).contiguous()
     probe, _, _ = key_words(rng, PROBES, width, width + 4, dev,
                             pick_from=(b, lens))
-    return time_probe(probe, build, f"{u} keys")
+    return time_probe(probe, build, f"{u} string keys")
+
+
+def int_probe_phase(rng, u: int, dev):
+    """The same on one-word keys: u distinct int keys drawn from 1..4u
+    through the join's own signature (exec/joinexec.py KeyLayout), PROBES
+    probes of which about half are build keys."""
+    layout = KeyLayout(T.I64, 0, has_valid=False)
+
+    def sig(vals):
+        leaf, _ = layout.key_leaf(C.NumericLeaf(vals.astype(np.int64)), {},
+                                  len(vals))
+        return layout.words(leaf, dev)
+
+    vals = rng.choice(4 * u, size=u, replace=False) + 1
+    build = J.flip(torch.unique(J.flip(sig(vals)), dim=0)).contiguous()
+    pv = np.where(rng.random(PROBES) < 0.5, rng.choice(vals, PROBES),
+                  rng.integers(1, 4 * u + 1, PROBES))
+    return time_probe(sig(pv).contiguous(), build, f"{u} int keys")
 
 
 def time_probe(words: torch.Tensor, build: torch.Tensor, what: str):
     """join_probe's kernel against its plain version on the card (exact),
-    and the times of both, of torch.searchsorted on one-word keys of the
-    same sizes, and the bound: probe words and the table read once, 9
-    bytes a row written, at the device memory rate."""
+    and the times of the kernel, of its table copy alone, of the plain
+    version, of torch.searchsorted on the first words (for one-word keys
+    the same lower bound, without the equality flag), of the index's
+    build, and the bound: probe words and the table read once, 9 bytes a
+    row written, at the device memory rate."""
+    index = J.probe_index(build)
     before = join_cuda.launches
-    pos, matched = J.join_probe(words, build)
+    pos, matched = J.join_probe(words, index)
     want_pos, want_m = J.lower_bound_plain(words, build)
     torch.cuda.synchronize()
     if join_cuda.launches != before + 1:
@@ -640,19 +665,47 @@ def time_probe(words: torch.Tensor, build: torch.Tensor, what: str):
         raise AssertionError(f"join_probe kernel != plain on {what}")
     b, nw = words.shape
     u = build.shape[0]
-    ms, host_ms = kernel_device_ms(lambda: J.join_probe(words, build), 50)
+    ms, host_ms = kernel_device_ms(lambda: J.join_probe(words, index), 50)
+    copy_ms, _ = kernel_device_ms(
+        lambda: join_cuda.probe(words, index, copy_only=True), 50)
     plain_ms = cuda_ms(lambda: J.lower_bound_plain(words, build), 3)
-    one = torch.sort(build[:, 0]).values
-    lib_ms, _ = kernel_device_ms(
-        lambda: torch.searchsorted(one, words[:, 0]), 50)
+    index_ms = cuda_ms(lambda: J.probe_index(build), 5)
+    one = J.flip(build[:, 0]).sort().values
+    first = J.flip(words[:, 0]).contiguous()
+    lib_ms, _ = kernel_device_ms(lambda: torch.searchsorted(one, first), 50)
     bound_ms = (b * nw * 8 + u * nw * 8 + 9 * b) / HBM_BYTES_PER_S * 1e3
+    lib = "the same keys" if nw == 1 else \
+        f"the first words only ({nw} words a key)"
     print(f"join_probe at [{b}, {nw}] probes into [{u}, {nw}] build words "
-          f"({what}): {int(matched.sum())} matched; kernel {ms:.4f} ms "
-          f"({host_ms:.4f} ms of host time per wrapper call), plain "
-          f"{plain_ms:.4f} ms, torch.searchsorted on one-word keys "
-          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms; kernel == plain")
+          f"({what}; index: fences every {1 << index.group_shift} keys, "
+          f"{index.bits} radix bits, {(index.radix_words + index.fence_words) * 8}"
+          f" bytes in shared memory, built in {index_ms:.4f} ms): "
+          f"{int(matched.sum())} matched; kernel {ms:.4f} ms (its table "
+          f"copy alone {copy_ms:.4f} ms; {host_ms:.4f} ms of host time per "
+          f"wrapper call), plain {plain_ms:.4f} ms, torch.searchsorted on "
+          f"{lib} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms; kernel == plain")
     return err, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "library_ms": lib_ms}
+                 "library_ms": lib_ms if nw == 1 else None}
+
+
+def recording_probes(inputs: list):
+    """A context that records every (words, index) the join hands the
+    kernel wrapper."""
+    kernel = join_cuda.probe
+
+    @contextlib.contextmanager
+    def ctx():
+        def recording(words, index, **kw):
+            inputs.append((words, index.words))
+            return kernel(words, index, **kw)
+
+        join_cuda.probe = recording
+        try:
+            yield
+        finally:
+            join_cuda.probe = kernel
+
+    return ctx()
 
 
 def flights_phase(tmp: str):
@@ -672,24 +725,15 @@ def flights_phase(tmp: str):
     want, loop_s = timed(lambda: flights.run_reference_python(
         *paths, exceptions=excs))
     inputs = []
-    kernel = join_cuda.probe
-
-    def recording(words, build):
-        inputs.append((words, build))
-        return kernel(words, build)
-
     ctx = Context()
-    join_cuda.probe = recording
-    join_cuda.launches = 0
-    try:
+    with recording_probes(inputs):
+        join_cuda.launches = 0
         t0 = time.perf_counter()
         ds = flights.build_pipeline(ctx, *paths)
         got = ds.collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        join_cuda.probe = kernel
-    launches = join_cuda.launches
+        launches = join_cuda.launches
     d = flights.OUTPUT_COLS.index("Distance")
     if got != want or [r[d].hex() for r in got] != \
             [r[d].hex() for r in want]:
@@ -723,7 +767,10 @@ def flights_phase(tmp: str):
     return launches, inputs
 
 
-def q19_phase(tmp: str) -> None:
+def q19_phase(tmp: str):
+    """Q19 on the card, twice, against the plain loop. Returns (kernel
+    launches in the two runs, the probe inputs the path gave the
+    kernel)."""
     part, li = os.path.join(tmp, "part.csv"), os.path.join(tmp, "li.csv")
     t0 = time.perf_counter()
     tpch.generate_q19_csvs(part, li, Q19_PARTS, Q19_ITEMS, seed=Q19_SEED)
@@ -731,13 +778,17 @@ def q19_phase(tmp: str) -> None:
           f"{time.perf_counter() - t0:.2f} s")
     want, loop_s = timed(lambda: tpch.run_reference_q19(part, li))
     bits = set()
+    inputs, launches = [], 0
     for run in (1, 2):
         ctx = Context()
-        t0 = time.perf_counter()
-        ds = tpch.q19(ctx, part, li)
-        (got,) = ds.collect()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with recording_probes(inputs):
+            join_cuda.launches = 0
+            t0 = time.perf_counter()
+            ds = tpch.q19(ctx, part, li)
+            (got,) = ds.collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches += join_cuda.launches
         m = ctx.metrics
         (join,) = [s for s in m.stages if "host_probed_rows" in s]
         if not close(got, want) or ds.exception_counts() or \
@@ -757,8 +808,12 @@ def q19_phase(tmp: str) -> None:
                   f"{s['wall_s']:.3f}" for s in m.stages) + " s")
     if len(bits) != 1:
         raise AssertionError(f"q19: two runs gave {bits}")
+    if launches <= 0:
+        raise AssertionError("q19 did not launch the join probe kernel")
+    print(f"q19: join_probe launches {launches} in two runs")
     os.remove(part)
     os.remove(li)
+    return launches, inputs
 
 
 def main() -> None:
@@ -935,19 +990,28 @@ def main() -> None:
     for u, width in ((AIRPORT_KEYS, 8), (Q19_PARTS, 16)):
         err, _ = probe_phase(np.random.default_rng(u), u, width, dev)
         max_probe_err = max(max_probe_err, err)
+    for u in (AIRPORT_KEYS, Q19_PARTS):
+        err, _ = int_probe_phase(np.random.default_rng(u + 1), u, dev)
+        max_probe_err = max(max_probe_err, err)
 
     # 9 --------------------------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    probe_launches, probe_inputs = flights_phase(tmp)
+    flights_launches, probe_inputs = flights_phase(tmp)
     # the kernel at the path's own inputs: the largest probe it made
     words, build = max(probe_inputs, key=lambda wb: wb[0].shape[0])
-    err, probe_nums = time_probe(words, build, "flights probe")
+    err, _ = time_probe(words, build, "flights probe")
     max_probe_err = max(max_probe_err, err)
     del probe_inputs, words, build
 
     # 10 -------------------------------------------------------------
-    q19_phase(tmp)
+    q19_launches, probe_inputs = q19_phase(tmp)
     os.rmdir(tmp)
+    # one-word keys: torch.searchsorted computes the same lower bound
+    words, build = max(probe_inputs, key=lambda wb: wb[0].shape[0])
+    err, probe_nums = time_probe(words, build, "q19 probe")
+    max_probe_err = max(max_probe_err, err)
+    probe_launches = flights_launches + q19_launches
+    del probe_inputs, words, build
 
     # 11 -------------------------------------------------------------
     zero_native_calls()

@@ -294,51 +294,100 @@ def test_tpch_and_nyc311_on_cuda(tmp_path, cuda_device):
         .collect() == nyc311.run_reference_python(path)
 
 
-def _probe_words(seed: int, u: int, nw: int, b: int):
+def _probe_words(seed: int, u: int, nw: int, b: int, runs: int = 0):
     """Sorted unique build words in unsigned order (top bits set and
     clear) and probe words: build rows, rows one off in their last word,
-    random rows."""
+    random rows, and rows below the first key and above the last. With
+    `runs`, the first words take only `runs` values (runs of equal first
+    words, as long string keys with a common 8-byte prefix give)."""
     rng = np.random.default_rng(seed)
-    build = np.unique(rng.integers(0, 2**64 - 1, size=(u, nw),
-                                   dtype=np.uint64), axis=0)
+    build = rng.integers(0, 2**64 - 1, size=(u, nw), dtype=np.uint64)
+    if runs:
+        build[:, 0] = rng.integers(0, 2**64 - 1, size=runs,
+                                   dtype=np.uint64)[
+            rng.integers(0, runs, size=u)]
+    build = np.unique(build, axis=0)
     probe = build[rng.integers(0, len(build), size=b)].copy()
     near = rng.random(b) < 0.3
     probe[near, -1] += np.uint64(1)
     rand = rng.random(b) < 0.2
     probe[rand] = rng.integers(0, 2**64 - 1, size=(int(rand.sum()), nw),
                                dtype=np.uint64)
+    probe[:2] = 0
+    probe[2:4] = np.uint64(2**64 - 1)
     return (torch.from_numpy(build.view(np.int64)),
             torch.from_numpy(probe.view(np.int64)))
 
 
+# 227 KB of shared memory a block: 14,528 keys of two words (the table
+# the earlier kernel held whole), and 28,030 first words beside an 11-bit
+# radix table (the most keys whose first words all fit)
+_SHARED_KEYS = 232_448 // 16
+_FENCE_KEYS = 28_030
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nw", [2, 3, 4])
-@pytest.mark.parametrize("u", [1, 2, 9, 1000, 9300, 100_000])
-def test_join_probe_kernel_matches_plain(nw, u, cuda_device):
-    """The kernel against its plain version on the same CUDA tensors:
-    tables that fit shared memory and tables that do not (100,000 keys of
-    2-4 words), and a probe batch that is not a multiple of a block."""
-    build, probe = _probe_words(nw * 100_000 + u, u, nw, 50_001)
+@pytest.mark.parametrize("nw", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("u,runs", [
+    (1, 0), (2, 0), (9, 0), (1000, 0), (9300, 0), (100_000, 0),
+    (200_000, 0), (300_000, 0), (_SHARED_KEYS - 3, 0), (_SHARED_KEYS, 0),
+    (_SHARED_KEYS + 3, 0), (_FENCE_KEYS - 3, 0), (_FENCE_KEYS, 0),
+    (_FENCE_KEYS + 1, 0), (_FENCE_KEYS + 4, 0), (5000, 3), (100_000, 7),
+    (4000, 1)])
+def test_join_probe_kernel_matches_plain(nw, u, runs, cuda_device):
+    """The kernel against its plain versions on the same CUDA tensors:
+    one to five words; tables whose first words all fit shared memory,
+    tables a few keys either side of a block's 227 KB, tables searched in
+    groups of 2-8 first words and in groups of more (300,000 keys); long
+    runs of equal first words (all u keys sharing one where runs is 1);
+    probes below the first key and above the last; a probe batch that is
+    not a multiple of a block."""
+    build, probe = _probe_words(nw * 1_000_000 + u + runs, u, nw, 50_001,
+                                runs)
     build, probe = build.to(cuda_device), probe.to(cuda_device)
+    index = J.probe_index(build)
     before = join_cuda.launches
-    pos, matched = J.join_probe(probe, build)
+    pos, matched = J.join_probe(probe, index)
     assert join_cuda.launches == before + 1
     want_pos, want_m = J.lower_bound_plain(probe, build)
     assert torch.equal(pos, want_pos) and torch.equal(matched, want_m)
+    got_pos, got_m = J.lower_bound_index_plain(probe, index)
+    assert torch.equal(got_pos, want_pos) and torch.equal(got_m, want_m)
     assert 0 < int(matched.sum()) < probe.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,group_shift", [(1, 0), (3, 1), (2, 2),
+                                              (4, 3), (6, 5)])
+def test_join_probe_kernel_layouts_match_plain(bits, group_shift,
+                                               cuda_device):
+    """Every index layout the kernel reads: few radix bits (large
+    buckets), fences every 1, 2, 4, 8 and 32 first words."""
+    for nw, runs in ((1, 0), (3, 0), (2, 5)):
+        build, probe = _probe_words(bits * 100 + nw, 20_000, nw, 30_001,
+                                    runs)
+        build, probe = build.to(cuda_device), probe.to(cuda_device)
+        index = J.probe_index(build, bits, group_shift)
+        pos, matched = join_cuda.probe(probe, index)
+        want_pos, want_m = J.lower_bound_plain(probe, build)
+        assert torch.equal(pos, want_pos) and torch.equal(matched, want_m)
 
 
 @pytest.mark.cuda
 def test_join_probe_wrapper_rejects_bad_inputs(cuda_device):
     build, probe = _probe_words(1, 10, 2, 10)
     with pytest.raises(ValueError):
-        join_cuda.probe(probe, build)               # CPU tensors
+        join_cuda.probe(probe, J.probe_index(build))    # CPU tensors
+    index = J.probe_index(build.to(cuda_device))
     with pytest.raises(ValueError):
-        join_cuda.probe(probe.to(cuda_device)[:, :1],
-                        build.to(cuda_device))      # word counts differ
+        join_cuda.probe(probe.to(cuda_device)[:, :1], index)  # word counts
     with pytest.raises(TypeError):
-        join_cuda.probe(probe.to(cuda_device).to(torch.int32),
-                        build.to(cuda_device))
+        join_cuda.probe(probe.to(cuda_device).to(torch.int32), index)
+    # a layout whose fences do not fit a block's shared memory
+    big, probe = _probe_words(2, 40_000, 1, 10)
+    with pytest.raises(RuntimeError):
+        join_cuda.probe(probe.to(cuda_device),
+                        J.probe_index(big.to(cuda_device), 2, 0))
 
 
 @pytest.mark.cuda

@@ -111,10 +111,18 @@ def test_nan_float_keys_have_no_signature():
 def _probe_case(nw: int, u: int, case: str, seed: int):
     """Sorted unique build words (unsigned order, top bits set and clear)
     and probe words: build rows, rows that differ in the last word only,
-    and random rows; 'miss' keeps only rows equal to no build row."""
+    and random rows; 'miss' keeps only rows equal to no build row; 'runs'
+    gives the build rows' first words three values and 'same' one (runs
+    of equal first words, as long string keys with a common 8-byte prefix
+    give); 'ends' adds probes below the first build row and above the
+    last."""
     rng = np.random.default_rng(seed)
-    build = np.unique(rng.integers(0, 2**64 - 1, size=(u, nw),
-                                   dtype=np.uint64), axis=0)
+    build = rng.integers(0, 2**64 - 1, size=(u, nw), dtype=np.uint64)
+    if case in ("runs", "same"):
+        firsts = rng.integers(0, 2**64 - 1, size=3 if case == "runs" else 1,
+                              dtype=np.uint64)
+        build[:, 0] = firsts[rng.integers(0, len(firsts), size=u)]
+    build = np.unique(build, axis=0)
     b = 300
     probe = build[rng.integers(0, len(build), size=b)].copy()
     near = rng.random(b) < 0.3
@@ -123,6 +131,11 @@ def _probe_case(nw: int, u: int, case: str, seed: int):
     probe[rand] = rng.integers(0, 2**64 - 1, size=(int(rand.sum()), nw),
                                dtype=np.uint64)
     probe[:2] = build[[0, -1]]
+    if case != "miss":
+        probe[2] = 0
+        probe[3] = np.uint64(2**64 - 1)
+        probe[4] = build[0]
+        probe[4, 0] -= np.uint64(probe[4, 0] > 0)
     if case == "miss":
         keep = ~(probe[:, None, :] == build[None, :, :]).all(-1).any(-1)
         probe = probe[keep]
@@ -131,11 +144,15 @@ def _probe_case(nw: int, u: int, case: str, seed: int):
 
 @pytest.mark.parametrize("nw", [1, 2, 3])
 @pytest.mark.parametrize("u,case", [(1, "hit"), (1, "miss"), (7, "hit"),
-                                    (300, "hit"), (300, "miss")])
+                                    (300, "hit"), (300, "miss"),
+                                    (300, "runs"), (64, "same"),
+                                    (300, "ends")])
 def test_probe_matches_reference(nw, u, case):
     """Oracle: the reference's _build_probe_fn(u, nw) through jax.jit on
-    the CPU. join_probe's CPU routes (searchsorted for nw = 1, the plain
-    binary search otherwise) and the plain version itself."""
+    the CPU. join_probe's CPU route (the kernel's plain version over the
+    default index), the plain version over every index layout the kernel
+    reads (few radix bits, fences every 1, 2, 4, 8 and 32 first words),
+    and the plain whole-row binary search."""
     build, probe = _probe_case(nw, u, case, seed=nw * 1000 + u)
     u = len(build)
     want_pos, want_m = ref_joinexec._build_probe_fn(u, nw)(probe, build)
@@ -144,9 +161,36 @@ def test_probe_matches_reference(nw, u, case):
         assert not want_m.any()
     tw = torch.from_numpy(probe.view(np.int64))
     tb = torch.from_numpy(build.view(np.int64))
-    for pos, matched in (J.join_probe(tw, tb), J.lower_bound_plain(tw, tb)):
+    got = [J.join_probe(tw, J.probe_index(tb)), J.lower_bound_plain(tw, tb)]
+    got += [J.lower_bound_index_plain(tw, J.probe_index(tb, bits, gs))
+            for bits, gs in ((1, 0), (3, 1), (2, 2), (4, 3), (6, 5))]
+    for pos, matched in got:
         np.testing.assert_array_equal(pos.numpy(), want_pos)
         np.testing.assert_array_equal(matched.numpy(), want_m)
+
+
+def test_probe_index_layouts():
+    """probe_index's default layout: every first word a fence while the
+    fences fit a block's shared memory beside the radix table, else the
+    smallest group that fits; the radix table counts the fences below
+    each bucket. Oracle: numpy over the same words."""
+    rng = np.random.default_rng(3)
+    for u, group in ((9300, 1), (28_030, 1), (28_031, 2), (200_000, 8),
+                     (300_000, 16)):
+        first = np.sort(rng.choice(2**62, size=u, replace=False)) + 2**62
+        words = torch.from_numpy(first.astype(np.int64)[:, None])
+        index = J.probe_index(words)
+        assert 1 << index.group_shift == group
+        assert (index.radix_words + index.fence_words) * 8 <= \
+            J.SHARED_BYTES
+        fences = first[::group]
+        np.testing.assert_array_equal(index.fences.numpy(), fences)
+        assert index.shift == 64 - int(first[0] ^ first[-1]).bit_length()
+        bucket = (fences >> index.down) & ((1 << index.bits) - 1)
+        np.testing.assert_array_equal(
+            index.radix.numpy(),
+            np.searchsorted(np.sort(bucket), np.arange((1 << index.bits)
+                                                       + 1)))
 
 
 # ---------------------------------------------------------------------------

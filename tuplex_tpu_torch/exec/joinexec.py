@@ -11,10 +11,11 @@ device:
     type included, as a canonical byte signature (runtime/columns.py
     `key_signature_matrix`) packed into 64-bit words; `torch.unique` sorts and
     deduplicates them, with a count per key, and a stable sort of the
-    inverse gives each key's rows in the build side's order (CSR);
-  * probe: each left partition's key words against the unique build words
-    (ops/join.py `join_probe`: torch.searchsorted for one-word keys, the
-    CUDA kernel csrc/join_probe.cu for wider ones);
+    inverse gives each key's rows in the build side's order (CSR), and
+    the probe's search index is built over the unique words once
+    (ops/join.py `probe_index`);
+  * probe: each left partition's key words against the index (ops/join.py
+    `join_probe`: the CUDA kernel csrc/join_probe.cu on the card);
   * expand: each left row repeats once per match (`repeat_interleave`,
     once when a left join finds none), and every leaf of both sides is
     gathered at those rows, whatever the column's layout (tuples, Options
@@ -60,7 +61,7 @@ import torch
 
 from ..core import typesys as T
 from ..core.errors import TuplexException
-from ..ops.join import flip, join_probe
+from ..ops.join import flip, join_probe, probe_index
 from ..plan.joins import join_rows, joined_row
 from ..runtime import columns as C
 
@@ -278,7 +279,7 @@ class _Build:
                 flip(words[kept]), dim=0, return_inverse=True,
                 return_counts=True)
             self.n_keys, self.nw = uniq.shape
-            self.words = flip(uniq).contiguous()
+            self.index = probe_index(flip(uniq))
             self.counts = counts
             self.offsets = torch.cumsum(counts, 0) - counts
             self.order = kept[torch.sort(inverse, stable=True).indices]
@@ -329,7 +330,7 @@ class _Build:
             words = self.layout.words(leaf, dev)
             if words is None:
                 return None      # NaN != NaN
-            pos, matched = join_probe(words, self.words)
+            pos, matched = join_probe(words, self.index)
             matched &= ~torch.from_numpy(unmatchable | nohash).to(dev)
         errors.extend(errs)
         cnt = torch.where(matched, self.counts[pos], 0) if self.n_keys \
