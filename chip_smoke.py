@@ -16,7 +16,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
      stages; results must match exactly. Each timed input's kernel time is
      printed beside the time PERF.md records for the kernel this one
      replaced;
-  4. the dual-mode smoke pipeline through Context() on the card;
+  4. the dual-mode smoke pipeline through Context() on the card (its None
+     row leaves through the exact exit);
   5. the log grep over 1,891,715 generated Apache log lines (seed 17, one
      non-ASCII line in every 100,000): the text source timed apart with the
      native module and with its Python path (their partitions must be
@@ -28,7 +29,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
      the native module and with the numpy path, whose arrays and
      partitions must be equal), then the pipeline through Context() on the
      card, checked against the plain Python loop on the same file (rows,
-     order and types), then its results decoded to Python both ways;
+     order and types) and CPython's exception classes, then its results
+     decoded to Python both ways;
   7. the aggregate stage: TPC-H Q6 and Q1 over 1,000,000 generated
      lineitem rows (seed 7; SF1 has 6,001,215), each run twice through
      Context() on the card and checked against the plain Python loops over
@@ -38,7 +40,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
      interpreter; the CSV source timed apart, then Q6 under torch.profiler
      for the card's busy time and idle share; a 2,000-row lineitem file
      with 'N/A' and empty quantity and discount cells through both queries
-     (rows and exception counts equal a plain CPython loop's); and NYC 311
+     (rows and exception counts equal a plain CPython loop's, no row
+     interpreted); and NYC 311
      over 1,000,000 generated rows (seed 23), equal in order to the plain
      loop;
   8. the join probe kernel (csrc/join_probe.cu) against its plain torch
@@ -55,17 +58,29 @@ Phases, in order; any failure ends the run with a nonzero exit:
      all 30 columns; about a month and a half of the public BTS on-time
      table) with the six-row carrier and airport files as build sides,
      through Context() on the card, checked against the plain Python loop
-     (rows in order, values exact, exception counts); every join probed on
-     the card, the kernel launched on the path, and held against its plain
-     version on the largest probe the path gave it;
+     (rows in order, values exact, exception counts); every row of the
+     first stage that violates its decode (a filled cell in a column the
+     sample typed null) finished by the general-case tier, none
+     interpreted; every join probed on the card, the kernel launched on
+     the path, and held against its plain version on the largest probe
+     the path gave it;
  10. TPC-H Q19 over 200,000 parts (SF1's part table) and 1,000,000
      lineitems (seed 19), twice, within 1e-9 relative of the plain loop and
      the same bits both runs, every row probed on the card through the
      kernel (one-word keys), which is held against its plain version and
      torch.searchsorted on the largest probe the path gave it;
- 11. every entry point of the native module against its Python path on
+ 11. the widened-column CSV (models/widened.py) over 1,000,000 rows
+     (seed 5): a column empty through the sniffed sample, then filled;
+     every filled row finished by the general-case tier on the card, none
+     interpreted, the rows equal to the plain loop's;
+ 12. every entry point of the native module against its Python path on
      small inputs. The run fails unless the main path (phases 4-7) called
      the native entry points it uses and every entry point was called.
+
+Phases 4, 6, 7, 9 and 11 print each job's resolve tiers: the rows the
+interpreter, the general-case tier and the exact exit finished, the
+general tier's and the interpreter's seconds, and microseconds per
+interpreter row.
 
 It prints one JSON line of kernel numbers, then the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs CUDA
@@ -92,11 +107,14 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
 
 from tuplex_tpu_torch import Context, native              # noqa: E402
+from tuplex_tpu_torch.compiler.pypipeline import (        # noqa: E402
+    build_python_pipeline)
 from tuplex_tpu_torch.core import typesys as T            # noqa: E402
 from tuplex_tpu_torch.exec.joinexec import KeyLayout      # noqa: E402
+from tuplex_tpu_torch.exec.local import source_partitions  # noqa: E402
 from tuplex_tpu_torch.io import csvsource                 # noqa: E402
 from tuplex_tpu_torch.models import (flights, logs,       # noqa: E402
-                                     nyc311, tpch, zillow)
+                                     nyc311, tpch, widened, zillow)
 from tuplex_tpu_torch.ops import join as J                # noqa: E402
 from tuplex_tpu_torch.ops import join_cuda, nfa_cuda      # noqa: E402
 from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
@@ -116,6 +134,8 @@ FLIGHTS_SEED = 13
 Q19_PARTS = 200_000         # TPC-H SF1's part table
 Q19_ITEMS = 1_000_000       # SF1's lineitem has 6,001,215: cut for time
 Q19_SEED = 19
+WIDENED_ROWS = 1_000_000
+WIDENED_SEED = 5
 PROBES = 1_000_000          # probe rows of the kernel phase's batches
 AIRPORT_KEYS = 9_300        # about the rows of GlobalAirportDatabase.txt
 REL_TOL = 1e-9              # float sums: partials merged per partition
@@ -264,6 +284,41 @@ def timed(fn):
     t0 = time.perf_counter()
     out = fn()
     return out, time.perf_counter() - t0
+
+
+def tier_line(m) -> str:
+    """The resolve tiers of a job's transform stages (api/metrics.py)."""
+    n = m.interpreterRows()
+    per_row = f"{m.slowPathWallTime() / n * 1e6:.1f} us" if n else "-"
+    return (f"interpreter rows {n}, general rows {m.generalRows()}, "
+            f"exact-exit rows {m.exactExitRows()}, general path "
+            f"{m.generalPathWallTime():.3f} s, slow path "
+            f"{m.slowPathWallTime():.3f} s ({per_row} per interpreter row)")
+
+
+def interpreter_tiers(ctx, ds, what: str, n: int = 20_000) -> str:
+    """The first stage's interpreter on the first n rows of its first
+    partition, through the generated source tier and through the closure
+    tier: microseconds a row each; their results must be equal."""
+    stage = plan_stages(ds._op)[0]
+    part = source_partitions(ctx, stage.source)[0]
+    rows = C.decode_rows(part, range(min(n, part.num_rows)))
+    src = stage.python_pipeline(part.user_columns)
+    closure = build_python_pipeline(stage.ops)
+    if src.__name__ != "_tpx_pipeline":
+        raise AssertionError(f"{what}: the stage took no source tier")
+    got, src_s = timed(lambda: [src(r) for r in rows])
+    want, clo_s = timed(lambda: [closure(r) for r in rows])
+
+    def norm(res):
+        return [(st, (p.values, p.columns) if st == "ok" else p)
+                for st, p in res]
+
+    if norm(got) != norm(want):
+        raise AssertionError(f"{what}: source tier != closure tier")
+    return (f"{what} interpreter over {len(rows)} rows of its first stage: "
+            f"source tier {src_s / len(rows) * 1e6:.1f} us a row, closure "
+            f"tier {clo_s / len(rows) * 1e6:.1f} us a row; results equal")
 
 
 def same_arrays(a, b, what: str) -> None:
@@ -422,6 +477,7 @@ def zillow_phase(tmp: str, total_calls: dict) -> None:
     t0 = time.perf_counter()
     want = zillow.run_reference_python(path)
     ref_s = time.perf_counter() - t0
+    want_excs = zillow.exception_counts_python(path)
     ctx = Context()
     zero_native_calls()
     t0 = time.perf_counter()
@@ -441,18 +497,26 @@ def zillow_phase(tmp: str, total_calls: dict) -> None:
     m = ctx.metrics
     if m.stages[-1]["tier"] != "compiled":
         raise AssertionError("zillow: the stage did not compile")
-    if not 0 < m.interpreterRows() < ZILLOW_ROWS // 10:
-        raise AssertionError(f"zillow: {m.interpreterRows()} interpreter "
-                             "rows")
+    resolved = m.interpreterRows() + m.generalRows() + m.exactExitRows()
+    if not 0 < resolved == m.deviceErrorRows() < ZILLOW_ROWS // 10 or \
+            not m.exactExitRows():
+        raise AssertionError(f"zillow: {tier_line(m)}, device error rows "
+                             f"{m.deviceErrorRows()}")
+    if ds.exception_counts() != want_excs:
+        raise AssertionError(f"zillow: exceptions {ds.exception_counts()} "
+                             f"!= python {want_excs}")
     print(f"zillow Z1: {ZILLOW_ROWS} rows -> {len(got)} rows in "
           f"{wall:.3f} s ({ZILLOW_ROWS / wall:.0f} rows/s; python loop "
-          f"{ref_s:.3f} s), exceptions {ds.exception_counts()}, "
-          f"interpreter rows {m.interpreterRows()}, device error rows "
+          f"{ref_s:.3f} s), exceptions {ds.exception_counts()} (python "
+          f"{want_excs}), {tier_line(m)}, device error rows "
           f"{m.deviceErrorRows()}, fast path {m.fastPathWallTime():.3f} s, "
-          f"slow path {m.slowPathWallTime():.3f} s, backend "
+          f"backend "
           f"{m.totalWallTime():.3f} s (fast + slow + merge), outside the "
           f"backend {wall - m.totalWallTime():.3f} s (sniff, CSV source, "
           f"results to Python); native calls {calls}")
+    ctx = Context()
+    print(interpreter_tiers(ctx, zillow.build_pipeline(ctx.csv(path)),
+                            "zillow"))
     nat_s, py_s, n_rows = results_to_python(
         lambda c: zillow.build_pipeline(c.csv(path)))
     print(f"zillow results to Python ({n_rows} rows): native {nat_s:.3f} s, "
@@ -476,8 +540,8 @@ def query_line(name: str, ctx, wall: float, loop_s: float) -> str:
             f"aggregate stage {agg['wall_s']:.3f} s ({agg['device_rows']} "
             f"rows on the card); outside the backend "
             f"{wall - m.totalWallTime():.3f} s (sniff, CSV source, results "
-            f"to Python); interpreter rows {m.interpreterRows()}, rows "
-            f"folded on the host {m.hostFoldedRows()}")
+            f"to Python); {tier_line(m)}, rows folded on the host "
+            f"{m.hostFoldedRows()}")
 
 
 def tpch_phase(tmp: str, total_calls: dict) -> None:
@@ -556,13 +620,17 @@ def tpch_phase(tmp: str, total_calls: dict) -> None:
     tpch.generate_dirty_csv(dirty, 2000, seed=TPCH_SEED)
     rows = tpch.read_lineitem_dicts(dirty)
     want, excs = tpch.q6_python_counting(rows)
-    ds = tpch.q6(Context().csv(dirty))
+    ctx6 = Context()
+    ds = tpch.q6(ctx6.csv(dirty))
     (got,) = ds.collect()
-    if not close(got, want) or ds.exception_counts() != excs:
+    if not close(got, want) or ds.exception_counts() != excs or \
+            ctx6.metrics.interpreterRows():
         raise AssertionError(f"dirty q6: {got}, {ds.exception_counts()} != "
-                             f"python {want}, {excs}")
+                             f"python {want}, {excs}; "
+                             f"{tier_line(ctx6.metrics)}")
     want1, excs1 = tpch.q1_python_counting(rows)
-    ds = tpch.q1(Context().csv(dirty))
+    ctx1 = Context()
+    ds = tpch.q1(ctx1.csv(dirty))
     got1 = ds.collect()
     if [r[:2] for r in got1] != list(want1) or \
             ds.exception_counts() != excs1 or any(
@@ -571,8 +639,11 @@ def tpch_phase(tmp: str, total_calls: dict) -> None:
                 for r in got1):
         raise AssertionError(f"dirty q1: {got1}, {ds.exception_counts()} "
                              f"!= python {want1}, {excs1}")
+    if ctx1.metrics.interpreterRows():
+        raise AssertionError(f"dirty q1: {tier_line(ctx1.metrics)}")
     print(f"tpch dirty cells (2000 rows): q6 exceptions {excs}, q1 "
-          f"exceptions {excs1}, rows equal to the python loop's")
+          f"exceptions {excs1}, rows equal to the python loop's; q6 "
+          f"{tier_line(ctx6.metrics)}; q1 {tier_line(ctx1.metrics)}")
     os.remove(dirty)
 
 
@@ -724,6 +795,8 @@ def flights_phase(tmp: str):
     excs: dict = {}
     want, loop_s = timed(lambda: flights.run_reference_python(
         *paths, exceptions=excs))
+    violations = decode_violations(paths[0], flights.build_pipeline(
+        Context(), *paths))
     inputs = []
     ctx = Context()
     with recording_probes(inputs):
@@ -751,13 +824,21 @@ def flights_phase(tmp: str):
         raise AssertionError(f"flights: joins {joins}")
     if launches <= 0:
         raise AssertionError("flights did not launch the join probe kernel")
+    first = m.stages[0]
+    if not first["device_error_rows"] == violations == \
+            first["general_rows"] or first["interpreter_rows"]:
+        raise AssertionError(f"flights: {violations} decode violations, "
+                             f"first stage {first}")
     print(f"flights: {FLIGHTS_ROWS} rows -> {len(got)} rows in {wall:.3f} s "
           f"({FLIGHTS_ROWS / wall:.0f} rows/s; python loop {loop_s:.3f} s), "
           f"exceptions {ds.exception_counts()} (python {excs}), ignored "
-          f"rows {m.ignoredRows()}, interpreter rows {m.interpreterRows()}, "
-          f"fast path {m.fastPathWallTime():.3f} s, slow path "
-          f"{m.slowPathWallTime():.3f} s, backend {m.totalWallTime():.3f} s; "
-          f"join_probe launches {launches}")
+          f"rows {m.ignoredRows()}, {tier_line(m)}; the first stage's "
+          f"{violations} decode violations all finished by the general "
+          f"tier; fast path {m.fastPathWallTime():.3f} s, backend "
+          f"{m.totalWallTime():.3f} s; join_probe launches {launches}")
+    ctx = Context()
+    print(interpreter_tiers(ctx, flights.build_pipeline(ctx, *paths),
+                            "flights"))
     for i, s in enumerate(m.stages):
         print(f"  flights stage {i}: " + ", ".join(
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
@@ -765,6 +846,53 @@ def flights_phase(tmp: str):
     for p in paths:
         os.remove(p)
     return launches, inputs
+
+
+def decode_violations(path: str, ds) -> int:
+    """Rows of a CSV file with a filled cell in a column its first stage's
+    decode declares null (the sample saw it empty)."""
+    import csv
+
+    dec = plan_stages(ds._op)[0].ops[0]
+    cols = [c for c, t in zip(dec.declared.columns, dec.declared.types)
+            if t is T.NULL]
+    with open(path, newline="") as fp:
+        r = csv.reader(fp)
+        head = next(r)
+        idx = [head.index(c) for c in cols]
+        return sum(any(rec[i] for i in idx) for rec in r)
+
+
+def widened_phase(tmp: str) -> None:
+    """The widened-column CSV on the card against the plain loop: every
+    filled row leaves the fast path at the decode and the general-case
+    tier finishes it."""
+    path = os.path.join(tmp, "widened.csv")
+    t0 = time.perf_counter()
+    filled = widened.generate_csv(path, WIDENED_ROWS, seed=WIDENED_SEED)
+    print(f"widened: generated {WIDENED_ROWS} rows ({filled} with c "
+          f"filled), {os.path.getsize(path)} bytes, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    want, loop_s = timed(lambda: widened.run_reference_python(path))
+    ctx = Context()
+    t0 = time.perf_counter()
+    ds = widened.build_pipeline(ctx.csv(path))
+    got = ds.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = ctx.metrics
+    if got != want or ds.exception_counts():
+        raise AssertionError(f"widened: {len(got)} rows != python "
+                             f"{len(want)}, exceptions "
+                             f"{ds.exception_counts()}")
+    if not m.deviceErrorRows() == m.generalRows() == filled or \
+            m.interpreterRows() or m.exactExitRows():
+        raise AssertionError(f"widened: {filled} filled rows, "
+                             f"{tier_line(m)}")
+    print(f"widened: {WIDENED_ROWS} rows -> {len(got)} rows in {wall:.3f} s "
+          f"(python loop {loop_s:.3f} s), {tier_line(m)}, fast path "
+          f"{m.fastPathWallTime():.3f} s, backend {m.totalWallTime():.3f} s")
+    os.remove(path)
 
 
 def q19_phase(tmp: str):
@@ -922,12 +1050,12 @@ def main() -> None:
                               "smoke")
     if got != [(1, 1), (2, 4), (4, 16)]:
         raise AssertionError(f"smoke pipeline: {got}")
-    if ctx.metrics.interpreterRows() != 1 or \
-            ds.exception_counts() != {"TypeError": 1}:
-        raise AssertionError(f"smoke pipeline: interpreter rows "
-                             f"{ctx.metrics.interpreterRows()}, exceptions "
+    m = ctx.metrics
+    if (m.interpreterRows(), m.generalRows(), m.exactExitRows()) != \
+            (0, 0, 1) or ds.exception_counts() != {"TypeError": 1}:
+        raise AssertionError(f"smoke pipeline: {tier_line(m)}, exceptions "
                              f"{ds.exception_counts()}")
-    print(f"smoke: {got}, interpreter rows 1, exceptions "
+    print(f"smoke: {got}, {tier_line(m)}, exceptions "
           f"{ds.exception_counts()}, NFA launches {nfa_cuda.launches}, "
           f"native calls {calls}")
 
@@ -1005,6 +1133,9 @@ def main() -> None:
 
     # 10 -------------------------------------------------------------
     q19_launches, probe_inputs = q19_phase(tmp)
+
+    # 11 -------------------------------------------------------------
+    widened_phase(tmp)
     os.rmdir(tmp)
     # one-word keys: torch.searchsorted computes the same lower bound
     words, build = max(probe_inputs, key=lambda wb: wb[0].shape[0])
@@ -1013,7 +1144,7 @@ def main() -> None:
     probe_launches = flights_launches + q19_launches
     del probe_inputs, words, build
 
-    # 11 -------------------------------------------------------------
+    # 12 -------------------------------------------------------------
     zero_native_calls()
     native_check()
     for k, v in native.calls.items():

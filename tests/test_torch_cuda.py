@@ -140,7 +140,9 @@ def test_pipelines_on_cuda(tmp_path, cuda_device):
     assert logs.build_grep(ctx.text(path)).collect() == \
         logs.run_grep_reference(path)
     assert nfa_cuda.launches > before
-    assert ctx.metrics.interpreterRows() == 5
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() == 5
+    assert m.interpreterRows() == 5
 
 
 STRING_ROWS = ["", " 42", "+7", "-0", "1_000", "N/A", "0210A", "3 bds , 2 ba",
@@ -201,7 +203,10 @@ def test_zillow_on_cuda(tmp_path, cuda_device):
     assert ds.exception_counts() == {"ValueError": 62, "TypeError": 4,
                                      "AttributeError": 34}
     assert ctx.metrics.stages[-1]["tier"] == "compiled"
-    assert ctx.metrics.interpreterRows() == 109
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() == 109
+    assert (m.interpreterRows(), m.generalRows(), m.exactExitRows()) == \
+        (0, 9, 100)
 
 
 F64_ROWS = ["17.0", "0.05", "-0.0", ".5", "5.", " 2.5 ", "1e22", "1e23",

@@ -136,7 +136,10 @@ def test_int64_overflow_matches_cpython(udf, n_wrapped):
     got = ctx.parallelize(OVERFLOW_INTS).map(udf).collect()
     assert got == want
     assert [type(v) for v in got] == [int] * len(want)
-    assert ctx.metrics.interpreterRows() == n_wrapped
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() \
+        == n_wrapped
+    assert m.interpreterRows() == n_wrapped
     assert ctx.metrics.stages[-1]["tier"] == \
         ("interpreter" if udf is absolute else "compiled")
     ref_rows = [_wrapped(v) for v in want]

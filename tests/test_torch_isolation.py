@@ -29,8 +29,10 @@ def test_smoke_pipeline_with_jax_blocked(tmp_path):
         import tuplex_tpu_torch
         ctx = tuplex_tpu_torch.Context(device="cpu")
         ds = ctx.parallelize([1, 2, None, 4]).map(lambda x: (x, x * x))
+        m = ctx.metrics
         print(ds.collect(), ds.exception_counts(),
-              ctx.metrics.interpreterRows())
+              m.interpreterRows() + m.generalRows() + m.exactExitRows(),
+              m.interpreterRows())
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "tuplex_tpu")]
         print(sorted(loaded))
@@ -40,7 +42,7 @@ def test_smoke_pipeline_with_jax_blocked(tmp_path):
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.splitlines() == [
-        "[(1, 1), (2, 4), (4, 16)] {'TypeError': 1} 1", "[]"]
+        "[(1, 1), (2, 4), (4, 16)] {'TypeError': 1} 1 0", "[]"]
 
 
 def test_zillow_csv_with_jax_and_pyarrow_blocked(tmp_path):

@@ -43,9 +43,11 @@ def test_dual_mode_smoke():
     assert got == [(1, 1), (2, 4), (4, 16)] == ref_ds.collect()
     assert ds.exception_counts() == ref_ds.exception_counts() \
         == {"TypeError": 1}
-    # the None row raised TypeError on the compiled path, then ran on the
-    # interpreter, which raised it again
-    assert ctx.metrics.interpreterRows() == 1
+    # the None row raised TypeError on the compiled path, an exact class
+    # in a stage without resolvers: the exact exit records it
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() == 1
+    assert m.interpreterRows() == 0 and m.exactExitRows() == 1
     assert ctx.metrics.deviceErrorRows() == 1
     assert ctx.metrics.totalExceptionCount == 1
     assert ctx.metrics.stages[-1]["tier"] == "compiled"
@@ -88,8 +90,12 @@ def test_log_grep(tmp_path):
     assert got == logs.build_grep(tuplex_tpu.Context().text(path)).collect()
     assert len(want) > 500
     # the non-ASCII lines left the compiled path at _ascii_guard and were
-    # merged back in order from the interpreter
-    assert ctx.metrics.interpreterRows() == 3000 // 250
+    # merged back in order from the interpreter (a text source has no
+    # general-case decode)
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() \
+        == 3000 // 250
+    assert m.interpreterRows() == 3000 // 250
     assert ctx.metrics.stages[-1]["tier"] == "compiled"
 
 
@@ -134,7 +140,9 @@ def test_device_exception_resolves_like_reference():
     assert ds.collect() == ref_ds.collect() == [2, 5, -4]
     assert ds.exception_counts() == ref_ds.exception_counts() \
         == {"ZeroDivisionError": 2}
-    assert ctx.metrics.interpreterRows() == 2
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() == 2
+    assert m.interpreterRows() == 0
 
 
 @pytest.mark.parametrize("kind", ["method", "anchored-regex"])
@@ -150,7 +158,10 @@ def test_not_compilable_interprets_like_reference(kind):
     got = build(ctx.parallelize(rows)).collect()
     assert got == build(tuplex_tpu.Context().parallelize(rows)).collect()
     assert ctx.metrics.stages[-1]["tier"] == "interpreter"
-    assert ctx.metrics.interpreterRows() == len(rows)
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() \
+        == len(rows)
+    assert m.interpreterRows() == len(rows)
 
 
 def test_fallback_rows():
@@ -160,7 +171,9 @@ def test_fallback_rows():
     ctx = _port()
     got = ctx.parallelize(data).map(lambda x: x * 2).collect()
     assert got == [2 * x for x in data]
-    assert ctx.metrics.interpreterRows() == 1
+    m = ctx.metrics
+    assert m.interpreterRows() + m.generalRows() + m.exactExitRows() == 1
+    assert m.interpreterRows() == 1
 
 
 def test_byte_matrix_encoding():

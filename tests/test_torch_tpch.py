@@ -117,12 +117,15 @@ def test_dirty_cells_rows_and_exceptions_match_the_loop(dirty):
     (got6,) = ds.collect()
     assert _close(got6, want6) and ds.exception_counts() == exc6
     assert sum(exc6.values()) > 0
-    # a dirty row runs on the interpreter once, in the transform stage
+    # a dirty row leaves the fast path once, in the transform stage, and
+    # the general tier or the exact exit finishes it
     n_dirty = sum(not isinstance(x[c], float) for x in rows
                   for c in ("l_quantity", "l_discount"))
     m = ctx.metrics
-    assert 0 < m.interpreterRows() == m.stages[0]["interpreter_rows"] \
-        <= n_dirty
+    tiers = ("interpreter_rows", "general_rows", "exact_exit_rows")
+    assert 0 < m.interpreterRows() + m.generalRows() + m.exactExitRows() \
+        == sum(m.stages[0][k] for k in tiers) <= n_dirty
+    assert m.interpreterRows() == 0
     want1, exc1 = tpch.q1_python_counting(rows)
     ds = tpch.q1(_port().csv(dirty))
     got1 = {r[:2]: r[2:] for r in ds.collect()}

@@ -26,6 +26,10 @@ class Metrics:
         """Seconds spent on the interpreter path."""
         return float(self._sum("slow_path_s"))
 
+    def generalPathWallTime(self) -> float:
+        """Seconds spent on the compiled general-case tier."""
+        return float(self._sum("general_path_s"))
+
     def totalWallTime(self) -> float:
         return float(self._sum("wall_s"))
 
@@ -49,3 +53,24 @@ class Metrics:
     def deviceErrorRows(self) -> int:
         """Rows the compiled path flagged with an error code."""
         return int(self._sum("device_error_rows"))
+
+    def generalRows(self) -> int:
+        """Rows the compiled general-case tier finished: their device error
+        code was internal, and the stage's function under the general-case
+        decode ran them without error."""
+        return int(self._sum("general_rows"))
+
+    def exactExitRows(self) -> int:
+        """Rows recorded as exceptions straight off the device lattice (a
+        stage without resolve or ignore, a Python exception class)."""
+        return int(self._sum("exact_exit_rows"))
+
+    def resolveTierMix(self) -> dict:
+        """The share of the rows that left the fast path which each resolve
+        tier finished: {'exact_exit': f, 'general': f, 'interpreter': f}
+        (all 0.0 when no row left it)."""
+        tiers = {"exact_exit": self.exactExitRows(),
+                 "general": self.generalRows(),
+                 "interpreter": self.interpreterRows()}
+        total = sum(tiers.values())
+        return {k: (v / total if total else 0.0) for k, v in tiers.items()}

@@ -363,9 +363,14 @@ class Frame:
         if isinstance(node.func, ast.Attribute):
             recv = self.eval(node.func.value)
             attr = node.func.attr
-            args = [self.eval(a) for a in node.args]
             module = getattr(recv.const, "__name__", None) \
                 if recv.is_const else None
+            if module is None and attr in _STR_METHODS and \
+                    (recv.base is T.STR or recv.t is T.NULL):
+                # CPython looks the method up before it evaluates the
+                # arguments: a None receiver raises AttributeError there
+                recv = self._str_receiver(recv)
+            args = [self.eval(a) for a in node.args]
             if module == "re" and attr in ("search", "match"):
                 return self._re_search(attr, args)
             if module == "string" and attr == "capwords":
@@ -697,6 +702,19 @@ class Frame:
             return S.broadcast_const("", self.ctx.b, self.ctx.device)
         return self._str_payload(v)
 
+    def _str_receiver(self, v: CV) -> CV:
+        """The str a method is called on: rows where it is None raise
+        AttributeError (`None.find`), not the TypeError of `None + 'a'`;
+        an all-None value leaves an empty-string dummy for the raised
+        rows."""
+        if v.t is T.NULL:
+            self.raise_where(self.ctx.ones(), ExceptionCode.ATTRIBUTEERROR)
+            return self.materialize(const_cv(""))
+        if v.valid is not None:
+            self.raise_where(~v.valid, ExceptionCode.ATTRIBUTEERROR)
+            return CV(t=T.STR, sbytes=v.sbytes, slen=v.slen)
+        return v
+
     def _str_concat(self, a: CV, b: CV) -> CV:
         if a.is_const and b.is_const:
             if not (isinstance(a.const, str) and isinstance(b.const, str)):
@@ -765,8 +783,7 @@ class Frame:
                 pass
         if name == "format":
             return self._str_dot_format(recv, args)
-        if name not in ("find", "rfind", "index", "rindex", "lower",
-                        "upper", "replace", "strip", "lstrip", "rstrip"):
+        if name not in _STR_METHODS:
             raise NotCompilable(f"str.{name}")
         rb, rl = self._to_strpair(recv)
         if name in ("strip", "lstrip", "rstrip"):
@@ -824,7 +841,8 @@ class Frame:
     def _capwords(self, args: list[CV]) -> CV:
         if len(args) != 1:
             raise NotCompilable("string.capwords: separator argument")
-        rb, rl = self._to_strpair(args[0])
+        # capwords(None) fails in None.split: AttributeError
+        rb, rl = self._to_strpair(self._str_receiver(args[0]))
         self._ascii_guard(rb, rl)   # case maps and spaces of ASCII only
         fb, fl = S.capwords(rb, rl)
         return CV(t=T.STR, sbytes=fb, slen=fl)
@@ -956,6 +974,10 @@ class Frame:
 
 
 _START_MAX_POS = 32   # the reference's NFARegex._START_MAX_POS
+# the str methods _str_method compiles
+_STR_METHODS = frozenset({"format", "find", "rfind", "index", "rindex",
+                          "lower", "upper", "replace", "strip", "lstrip",
+                          "rstrip"})
 
 
 def _is_str(v: CV) -> bool:

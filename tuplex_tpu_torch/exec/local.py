@@ -5,9 +5,19 @@ Per partition:
 
   * the compiled fast path runs the stage function over the staged batch
     (torch ops, the NFA scan as a CUDA kernel on the card)
-  * rows whose device error code != 0, and rows that did not conform to
-    the normal-case schema, re-run on the interpreter pipeline (the
-    reference's ResolveTask)
+  * rows the fast path flagged go down the resolve tiers the stage's
+    ResolvePlan names (plan/physical.py):
+      - the compiled general-case tier: rows with an internal code re-run
+        on the stage's device through the stage function built under the
+        decode's general-case types (`_general_case_pass`); rows it
+        finishes merge like interpreter rows, and its codes replace the
+        fast path's
+      - the exact exit: in a stage without resolve or ignore operators, a
+        row whose code is a Python exception class becomes an exception
+        record straight off the lattice (class and operator id)
+      - the interpreter: every other flagged row, and every input row
+        outside the normal-case schema, re-runs on the stage's Python
+        pipeline (the reference's ResolveTask)
   * the merge is positional: output rows keep their input order
     (reference: ResolveTask.cc:238-283 merge-in-order)
 
@@ -16,10 +26,7 @@ flight while the host merges an earlier one. A stage that runs a fused
 whole-dataset fold fetches the fold's partials and per-row flags, not its
 rows (exec/aggexec.py `FoldPartial`); an AggregateStage runs on the
 AggregateExecutor. `run_plan` runs a job's stages in order, a JoinStage
-on the JoinExecutor after its build side's plan. The reference package's
-compiled general-case tier and exact-exception exit need its plan-time
-exception inventory and are not ported: every device-error row goes to the
-interpreter, which produces the same rows and exception records.
+on the JoinExecutor after its build side's plan.
 """
 
 from __future__ import annotations
@@ -33,7 +40,9 @@ import numpy as np
 import torch
 
 from ..core import typesys as T
-from ..core.errors import NotCompilable
+from ..core.errors import (ExceptionCode, NotCompilable,
+                           exception_class_for_code, exception_name,
+                           unpack_device_codes)
 from ..core.row import Row
 from ..plan import logical as L
 from ..plan.physical import (AggregateStage, JoinStage, TransformStage,
@@ -94,6 +103,7 @@ class LocalBackend:
             collect_one()
         metrics["tier"] = "interpreter" if stage.not_compilable \
             else "compiled"
+        metrics["resolve_tier"] = stage.resolve_plan().tier
         metrics["wall_s"] = time.perf_counter() - t0
         metrics["exception_rows"] = len(exceptions)
         return StageResult(out_parts, exceptions, metrics)
@@ -128,6 +138,7 @@ class LocalBackend:
         out_arrays: dict[str, np.ndarray] = {}
         src_map = None
         fold = None
+        bufs = stage.resolve_plan().new_buffers()
         t0 = time.perf_counter()
         if outs is not None:
             host = self._fetch(outs, metrics)
@@ -169,6 +180,7 @@ class LocalBackend:
                 else part.normal_mask.astype(np.bool_)
             err_idx = np.nonzero(rowvalid & (err != 0))[0]
             fallback_idx.update(err_idx.tolist())
+            bufs.add_many(err_idx, err[err_idx])
             metrics["device_error_rows"] = len(err_idx)
             compiled_ok = rowvalid & keep & (err == 0)
             out_arrays = host
@@ -180,13 +192,36 @@ class LocalBackend:
         else:
             fallback_idx.update(range(n))
         metrics["fast_path_s"] = dispatch_s + time.perf_counter() - t0
+        resolved: dict[int, Row] = {}
+        exact = bufs.exact_rows()
+
+        # ---- compiled general-case tier (ResolveTask resolve_f analog) ----
+        if fallback_idx and outs is not None and \
+                stage.resolve_plan().use_general:
+            t0 = time.perf_counter()
+            cand = [(i, code) for i, code, _ in bufs.internal_rows()
+                    if i not in part.fallback]
+            if cand:
+                exact += self._general_case_pass(stage, part, cand,
+                                                 fallback_idx, resolved,
+                                                 metrics)
+            metrics["general_path_s"] = time.perf_counter() - t0
+
+        # ---- exact exceptions: no resolver, no interpreter run ------------
+        exc_by_row: dict[int, ExceptionRecord] = {}
+        if exact and not stage.has_resolvers:
+            exact.sort()
+            rows = C.decode_rows(part, [i for i, _, _ in exact])
+            for (i, code, op_id), row in zip(exact, rows):
+                exc_by_row[i] = ExceptionRecord(op_id, exception_name(code),
+                                                row.unwrap())
+                fallback_idx.discard(i)
+            metrics["exact_exit_rows"] = len(exact)
 
         # ---- interpreter path (ResolveTask analog) ------------------------
         t0 = time.perf_counter()
-        resolved: dict[int, Row] = {}
-        exc_by_row: dict[int, ExceptionRecord] = {}
         if fallback_idx:
-            pipeline = stage.python_pipeline()
+            pipeline = stage.python_pipeline(part.user_columns)
             order = sorted(fallback_idx)
             ignored = 0
             for i, row in zip(order, C.decode_rows(part, order)):
@@ -219,6 +254,69 @@ class LocalBackend:
                                resolved, src_map)
             rows = list(C.decode_rows(outp, range(outp.num_rows)))
         return FoldPartial([], 0, rows), exceptions, metrics
+
+    def _general_case_pass(self, stage: TransformStage, part: C.Partition,
+                           cand: list, fallback_idx: set, resolved: dict,
+                           metrics: dict) -> list:
+        """The compiled general-case tier (reference: `_general_case_pass`,
+        exec/local.py:1664; StageBuilder.cc:1145 generateResolveCodePath):
+        the candidate rows `cand` (internal codes, not boxed) re-run as a
+        sub-partition on the stage's device through the stage function
+        built under the general-case decode. A row it finishes leaves
+        `fallback_idx` (into `resolved` unless a filter dropped it); its
+        other rows keep going down the tiers under the general run's code.
+
+        A cell that does not parse as its column's type is a string on the
+        interpreter: a row the fast path flagged so re-runs with those
+        columns decoded as str (`_general_groups`), in a group with the
+        rows that share them. Returns (row, code, op_id) of the rows the
+        general run coded with a Python exception class. A stage function
+        the emitter rejects leaves its rows to the interpreter, counted in
+        `general_not_compilable_rows`."""
+        from ..plan.physical import runtime_output_columns
+
+        exact: list = []
+        retired = refused = 0
+        for str_cols, idx in _general_groups(stage, part, cand).items():
+            k = len(idx)
+            if str_cols in stage.general_refused:
+                refused += k
+                continue
+            batch = C.stage_rows(part, idx, self.device)
+            try:
+                outs = stage.build_device_fn(part.schema, general=True,
+                                             str_cols=str_cols)(batch.arrays)
+            except NotCompilable:
+                stage.general_refused.add(str_cols)
+                refused += k
+                continue
+            host = {kk: v.cpu().numpy() for kk, v in outs.items()}
+            err = host.pop("#err")[:k]
+            keep = host.pop("#keep")[:k]
+            ok = err == 0
+            bad_j = np.nonzero(~ok)[0]
+            for j, (code, op_id) in zip(bad_j.tolist(),
+                                        unpack_device_codes(err[bad_j])):
+                if exception_class_for_code(code) is not None:
+                    exact.append((int(idx[j]), code, op_id))
+            ok_j = np.nonzero(ok)[0]
+            if not len(ok_j):
+                continue
+            retired += len(ok_j)
+            outp = C.partition_from_result_arrays(
+                host, k, columns=runtime_output_columns(stage))
+            vals = C.partition_to_pylist(outp)
+            cols = outp.user_columns
+            single = len(outp.schema.types) == 1
+            for j in ok_j.tolist():
+                i = int(idx[j])
+                fallback_idx.discard(i)
+                if keep[j]:
+                    v = vals[j]
+                    resolved[i] = Row((v,), cols) if single else Row(v, cols)
+        metrics["general_rows"] = retired
+        metrics["general_not_compilable_rows"] = refused
+        return exact
 
     @staticmethod
     def _fetch(outs: dict, metrics: dict) -> dict:
@@ -265,18 +363,16 @@ class LocalBackend:
         if src_map is not None and comp_src.size:
             comp_src = src_map[comp_src]
         outp = C.gather_partition(full, comp_out, comp_src, m)
-        normal_mask = np.ones(m, dtype=np.bool_)
-        fallback: dict[int, Any] = {}
         multi = len(outp.schema.columns) > 1
-        for k in np.nonzero(~from_device)[0].tolist():
-            row = resolved[int(emit_orig[k])]
-            value = tuple(row.values) if multi else row.unwrap()
-            if not _try_fold_row(outp.leaves, outp.schema, k, value):
-                normal_mask[k] = False
-                fallback[k] = value
-        if fallback:
-            outp.normal_mask = normal_mask
-            outp.fallback = fallback
+        ks = np.nonzero(~from_device)[0]
+        values = [tuple(r.values) if multi else r.unwrap()
+                  for r in (resolved[int(i)] for i in emit_orig[ks])]
+        boxed = _fold_rows(outp, ks, values)
+        if boxed.any():
+            outp.normal_mask = np.ones(m, dtype=np.bool_)
+            outp.normal_mask[ks[boxed]] = False
+            outp.fallback = {int(ks[j]): values[j]
+                             for j in np.nonzero(boxed)[0].tolist()}
         return outp
 
 
@@ -332,7 +428,8 @@ def _rows_per_partition(context, schema, total_rows: int) -> int:
 
 _SUMMED = ("fast_path_s", "slow_path_s", "interpreter_rows",
            "ignored_rows", "device_error_rows", "fetch_bytes",
-           "fetched_row_columns")
+           "fetched_row_columns", "general_path_s", "general_rows",
+           "exact_exit_rows", "general_not_compilable_rows")
 
 
 def _fold_in_order(stage: TransformStage, part: C.Partition,
@@ -375,40 +472,68 @@ def _normalized_output_schema(stage: TransformStage) -> T.RowType:
     return s
 
 
-def _try_fold_row(leaves: dict, schema: T.RowType, k: int,
-                  value: Any) -> bool:
-    """Write a resolved python row into the columnar slots if it
-    conforms (else the caller boxes it)."""
-    multi = len(schema.columns) > 1
-    row_tuple = value if multi else (value,)
-    if multi and not (isinstance(row_tuple, tuple)
-                      and len(row_tuple) == len(schema.columns)):
-        return False
-    for rv, ct in zip(row_tuple, schema.types):
-        if not T.python_value_conforms(rv, ct):
-            return False
-    for ci, (ct, rv) in enumerate(zip(schema.types, row_tuple)):
-        for p, lv in C._leaf_paths_for_value(str(ci), ct, rv):
-            leaf = leaves[p]
-            if isinstance(leaf, C.StrLeaf):
-                b = lv.encode("utf-8") if lv is not None else b""
-                if len(b) > leaf.bytes.shape[1]:
-                    return False  # wider than the column: keep boxed
-    for ci, (ct, rv) in enumerate(zip(schema.types, row_tuple)):
-        for p, lv in C._leaf_paths_for_value(str(ci), ct, rv):
-            leaf = leaves[p]
-            if isinstance(leaf, C.StrLeaf):
-                b = lv.encode("utf-8") if lv is not None else b""
-                leaf.bytes[k, :] = 0
-                if b:
-                    leaf.bytes[k, : len(b)] = np.frombuffer(b, np.uint8)
-                leaf.lengths[k] = len(b)
-                if leaf.valid is not None:
-                    leaf.valid[k] = lv is not None
-            elif isinstance(leaf, C.NumericLeaf):
-                if leaf.valid is not None:
-                    leaf.valid[k] = lv is not None
-                    leaf.data[k] = 0 if lv is None else lv
-                else:
-                    leaf.data[k] = lv
-    return True
+def _general_groups(stage: TransformStage, part: C.Partition,
+                    cand: list) -> dict:
+    """The general tier's candidate rows grouped by the decode columns
+    each must read as str: {frozenset of decode positions: row indices}.
+    Only a row the fast path flagged BADPARSE_STRING_INPUT has such
+    columns: those whose cell the interpreter's decode
+    (`L.decode_cell_python`) keeps as a string, checked on the host."""
+    badparse = int(ExceptionCode.BADPARSE_STRING_INPUT)
+    dec = stage.ops[0]   # a stage with a general-case decode starts there
+    groups: dict = {}
+    plain = [i for i, code in cand if code != badparse]
+    if plain:
+        groups[frozenset()] = plain
+    bad = [i for i, code in cand if code == badparse]
+    if bad:
+        typed = [(ci, t) for ci, t in enumerate(dec.declared.types)
+                 if (t.without_option() if t.is_optional() else t)
+                 in (T.I64, T.F64)]
+        for i, row in zip(bad, C.decode_rows(part, bad)):
+            cols = frozenset(
+                ci for ci, t in typed
+                if isinstance(L.decode_cell_python(row.values[ci], t,
+                                                   dec.null_values), str))
+            groups.setdefault(cols, []).append(i)
+    return {k: np.asarray(v, dtype=np.int64) for k, v in groups.items()}
+
+
+def _fold_rows(outp: C.Partition, ks: np.ndarray,
+               values: list) -> np.ndarray:
+    """Write resolved Python rows `values` into the partition's columnar
+    slots `ks`, all at once (encoded as a partition of the same schema,
+    whose leaves are scattered in); returns the mask of the rows that stay
+    boxed (they do not conform to the schema, or a string is wider than
+    its column)."""
+    n = len(values)
+    boxed = np.zeros(n, dtype=np.bool_)
+    if not n:
+        return boxed
+    if len(outp.schema.columns) == 1:
+        # a 1-tuple that is not the column's value must not unwrap
+        t = outp.schema.types[0]
+        for j, v in enumerate(values):
+            if isinstance(v, tuple) and len(v) == 1 and \
+                    not T.python_value_conforms(v, t):
+                boxed[j] = True
+    sub = C.build_partition(values, outp.schema)
+    if sub.normal_mask is not None:
+        boxed |= ~sub.normal_mask
+    for p, src in sub.leaves.items():
+        if isinstance(src, C.StrLeaf):
+            boxed |= src.lengths > outp.leaves[p].bytes.shape[1]
+    j = np.nonzero(~boxed)[0]
+    pos = ks[j]
+    for p, src in sub.leaves.items():
+        dst = outp.leaves[p]
+        if isinstance(src, C.StrLeaf):
+            w = min(src.bytes.shape[1], dst.bytes.shape[1])
+            dst.bytes[pos] = 0
+            dst.bytes[pos, :w] = src.bytes[j, :w]
+            dst.lengths[pos] = src.lengths[j]
+        elif isinstance(src, C.NumericLeaf):
+            dst.data[pos] = src.data[j]
+        if getattr(src, "valid", None) is not None:
+            dst.valid[pos] = src.valid[j]
+    return boxed

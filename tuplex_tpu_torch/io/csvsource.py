@@ -13,7 +13,9 @@ fused into the pipeline):
     module's one-pass splitter and gather, or numpy where it is not
     available
   * typed decoding runs on the device inside the fused stage
-    (DecodeOperator); cells that fail to parse re-run on the interpreter
+    (DecodeOperator); rows whose cells do not fit the normal case re-run
+    under each column's general-case type (`general_type`), and the rest
+    on the interpreter
 """
 
 from __future__ import annotations
@@ -229,6 +231,20 @@ def infer_column_types(rows: list[list[str]], k: int,
     return types
 
 
+def general_type(t: T.Type) -> T.Type:
+    """A column's general-case type: the type under which the general
+    tier's columnar decode gives a cell the value the interpreter's decode
+    (`L.decode_cell_python`) gives it. That is Option of the normal-case
+    type, so null cells decode as None where the normal case raises
+    NULLERROR, and Option[str] for a column sampled all null, whose cells
+    the interpreter keeps as strings. A cell that does not parse as the
+    normal-case type stays a string on the interpreter too: the general
+    tier decodes such a column as str for those rows only
+    (`exec/local.py` `_general_case_pass`)."""
+    base = t.without_option() if t.is_optional() else t
+    return T.option(T.STR if base is T.NULL else base)
+
+
 class CSVStatistic:
     """Sniffing result over a file sample."""
 
@@ -272,6 +288,7 @@ class CSVStatistic:
         for key, t in (type_hints or {}).items():
             idx = key if isinstance(key, int) else self.columns.index(key)
             self.types[idx] = t
+        self.general_types = [general_type(t) for t in self.types]
         self.sample_rows = body[:max_rows]
 
 
@@ -337,7 +354,9 @@ def make_csv_operator(options, pattern: str, columns=None, header=None,
                         null_values=null_values, columns=columns,
                         type_hints=type_hints, quotechar=quotechar or '"')
     src = CSVSourceOperator(options, pattern, stat, files)
-    return L.DecodeOperator(src, _decoded_schema(stat), stat.null_values)
+    return L.DecodeOperator(src, _decoded_schema(stat), stat.null_values,
+                            general=T.row_of(stat.columns,
+                                             stat.general_types))
 
 
 def _decoded_schema(stat: CSVStatistic) -> T.RowType:

@@ -220,3 +220,40 @@ def run_reference_python(path: str) -> list:
             except Exception:
                 continue
     return out
+
+
+def exception_counts_python(path: str) -> dict:
+    """The first exception of each row through Z1 in plain CPython, by
+    class, the cells decoded as the CSV source speculates them: an empty
+    cell is None, a postal code an int where it parses."""
+    import csv
+
+    chain = [("bedrooms", extractBd),
+             (None, lambda x: x["bedrooms"] < 10),
+             ("type", extractType),
+             (None, lambda x: x["type"] == "house"),
+             ("zipcode", lambda x: "%05d" % int(x["postal_code"])),
+             ("city", lambda x: x["city"][0].upper() + x["city"][1:].lower()),
+             ("bathrooms", extractBa), ("sqft", extractSqft),
+             ("offer", extractOffer), ("price", extractPrice),
+             (None, lambda x: 100000 < x["price"] <= 2e7)]
+    counts: dict = {}
+    with open(path, newline="") as fp:
+        for row in csv.DictReader(fp):
+            x = {k: (None if v == "" else v) for k, v in row.items()}
+            try:
+                x["postal_code"] = int(x["postal_code"])
+            except (TypeError, ValueError):
+                pass
+            for col, f in chain:
+                try:
+                    v = f(x)
+                except Exception as e:
+                    name = type(e).__name__
+                    counts[name] = counts.get(name, 0) + 1
+                    break
+                if col is None and not v:
+                    break
+                if col is not None:
+                    x[col] = v
+    return counts

@@ -370,13 +370,18 @@ class DecodeOperator(LogicalOperator):
     (reference: JITCSVSourceTaskBuilder / CSVParseRowGenerator fuse parsing
     into the pipeline). On the interpreter path a cell that does not parse
     as its column's type stays the raw string, as the reference's general
-    case keeps un-specialized columns."""
+    case keeps un-specialized columns. `general` is the general-case row
+    type the compiled general tier decodes under (io/csvsource.py
+    `general_type`), None when it equals the declared one."""
 
     def __init__(self, parent: LogicalOperator, declared: T.RowType,
-                 null_values: Sequence[str]):
+                 null_values: Sequence[str],
+                 general: Optional[T.RowType] = None):
         super().__init__([parent])
         self.declared = declared
         self.null_values = tuple(null_values)
+        self.general = general if general is not None and \
+            general.name != declared.name else None
 
     def schema(self) -> T.RowType:
         return self.declared

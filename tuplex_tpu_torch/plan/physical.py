@@ -9,6 +9,10 @@ TransformStages, AggregateStages and JoinStages. A CSV source's cell decode is t
 operator: cells parse to their speculated types on the device, and only
 the columns the plan reads are split out of the file.
 
+The same function built with `general=True` is the compiled general-case
+tier: the decode runs under the general-case types, for the rows the fast
+path flagged (`ResolvePlan` says which tiers a stage uses).
+
 Selective filters may be followed by selection-vector compaction: live rows
 move to the front of a smaller batch so later operators touch fewer rows.
 The reference package uses `jnp.nonzero(size=...)`; here the gather indices
@@ -17,10 +21,12 @@ come from a cumsum and a scatter, which never waits for the device.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..compiler.emitter import EmitCtx, Emitter, Frame
@@ -28,11 +34,85 @@ from ..compiler.pypipeline import build_python_pipeline
 from ..compiler.stagefn import input_row_cv, result_arrays
 from ..compiler.values import CV, cv_arrays, cv_rebuild, null_cv, tuple_cv
 from ..core import typesys as T
-from ..core.errors import ExceptionCode, NotCompilable
+from ..core.errors import (ExceptionCode, NotCompilable,
+                           exception_class_for_code)
 from ..ops import strings as S
 from ..runtime.columns import user_columns
 from ..runtime.torchcfg import I32
 from . import logical as L
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvePlan:
+    """The resolve tiers of one TransformStage, decided at plan time from
+    the analyzer's exception-site inventory (`TransformStage.resolve_plan`,
+    counterpart of the reference's ResolvePlan, plan/physical.py:29):
+
+    * `use_general`: the compiled general-case tier can retire rows (the
+      stage decodes CSV cells and has a general-case decode).
+    * `interpreter_possible`: a device-coded row can reach the per-row
+      interpreter (a resolver or ignore runs there, or an internal code
+      can survive the general tier). Boxed input rows always interpret.
+    * `tier`: none | general | interpreter | general+interpreter |
+      exact-exit.
+    """
+
+    codes: tuple                 # the possible codes, sorted (ints)
+    exact_codes: frozenset       # those that are Python exception classes
+    use_general: bool
+    interpreter_possible: bool
+    tier: str
+
+    def new_buffers(self) -> "ResolveBuffers":
+        return ResolveBuffers(self.codes)
+
+
+class ResolveBuffers:
+    """A partition's error rows, (row, code, operator id), bucketed by
+    their code; the buckets are the plan's possible codes, and a code the
+    inventory missed lands in `other` (every row is still routed)."""
+
+    __slots__ = ("by_code", "other")
+
+    def __init__(self, codes):
+        self.by_code: dict[int, list] = {int(c): [] for c in codes}
+        self.other: list = []
+
+    def add_many(self, idx, packed) -> None:
+        """Bucket rows `idx` by their packed lattice values (class code in
+        the low byte, operator id above it: core/errors.pack_device_code)."""
+        idx = np.asarray(idx)
+        packed = np.asarray(packed)
+        codes = packed & 0xFF
+        opids = packed >> 8
+        known = np.zeros(len(idx), dtype=bool)
+        for c, buf in self.by_code.items():
+            m = codes == c
+            if m.any():
+                known |= m
+                buf.extend(zip(idx[m].tolist(), codes[m].tolist(),
+                               opids[m].tolist()))
+        m = ~known
+        if m.any():
+            self.other.extend(zip(idx[m].tolist(), codes[m].tolist(),
+                                  opids[m].tolist()))
+
+    def _rows(self, exact: bool) -> list:
+        out = [t for buf in (*self.by_code.values(), self.other)
+               for t in buf
+               if (exception_class_for_code(t[1]) is not None) == exact]
+        out.sort()
+        return out
+
+    def internal_rows(self) -> list:
+        """(idx, code, op_id) of rows whose code is internal: the general
+        tier's candidates."""
+        return self._rows(False)
+
+    def exact_rows(self) -> list:
+        """(idx, code, op_id) of rows whose code is a Python exception
+        class: the exact exit's."""
+        return self._rows(True)
 
 
 class TransformStage:
@@ -51,7 +131,10 @@ class TransformStage:
         self.source = source
         self.ops = ops
         self._relink_schemas()
-        self._py_pipeline = None
+        self._py_pipelines: dict = {}
+        # str-column sets of the general tier whose build the emitter
+        # rejected (exec/local.py _general_case_pass)
+        self.general_refused: set = set()
 
     def _relink_schemas(self) -> None:
         self.input_schema = self.source.schema()
@@ -59,15 +142,109 @@ class TransformStage:
         self.output_schema = last.schema()
         self.output_columns = last.columns()
 
-    def python_pipeline(self):
-        """The stage's interpreter pipeline, built once."""
-        if self._py_pipeline is None:
-            self._py_pipeline = build_python_pipeline(self.ops)
-        return self._py_pipeline
+    def python_pipeline(self, input_names: Optional[tuple] = None):
+        """The stage's interpreter pipeline, built once per runtime input
+        column names (the source tier binds column positions when it is
+        built)."""
+        key = tuple(input_names) if input_names else None
+        pipe = self._py_pipelines.get(key)
+        if pipe is None:
+            pipe = self._py_pipelines[key] = build_python_pipeline(self.ops,
+                                                                   key)
+        return pipe
+
+    @property
+    def has_resolvers(self) -> bool:
+        """Whether a resolve or ignore operator rides this stage. Without
+        one, a row whose device code is a Python exception class needs no
+        interpreter run: the exact exit records it."""
+        return any(isinstance(op, L.RESOLVERS) for op in self.ops)
+
+    def udf_reports(self) -> list:
+        """[(op, udf attribute, UDFReport)] for every UDF of the stage
+        (compiler/analyzer.py)."""
+        from ..compiler.analyzer import op_reports
+
+        return [(op, attr, rep) for op in self.ops
+                for attr, rep in op_reports(op)]
+
+    def possible_exception_codes(self) -> list:
+        """Every ExceptionCode a row of this stage can carry, from the
+        analyzer's exception-site inventory (no sampling): the UDFs'
+        sites, the decode's codes, PYTHON_FALLBACK where a UDF never
+        compiles, TYPEERROR where a UDF reads an Option column (a None
+        row raises there). A fused fold's expressions flag their rows
+        apart ('#foldok'), not in the lattice."""
+        from .optimizer import udf_read_columns
+
+        EC = ExceptionCode
+        codes: set = set()
+        for op in self.ops:
+            if isinstance(op, L.DecodeOperator):
+                codes |= {EC.NULLERROR, EC.BADPARSE_STRING_INPUT,
+                          EC.NORMALCASEVIOLATION}
+        for op, attr, rep in self.udf_reports():
+            if isinstance(op, L.RESOLVERS):
+                continue   # resolvers run on the interpreter only
+            codes |= rep.exception_codes()
+            if rep.must_fallback:
+                codes.add(EC.PYTHON_FALLBACK)
+            if EC.TYPEERROR in codes:
+                continue
+            sch = op.parent.schema()
+            opt_cols = {c for c, t in zip(sch.columns or (), sch.types)
+                        if t.is_optional() or t is T.NULL}
+            if opt_cols:
+                reads = {op.column} if isinstance(op, L.MapColumnOperator) \
+                    else udf_read_columns(op.udf)
+                if reads is None or opt_cols & reads:
+                    codes.add(EC.TYPEERROR)
+        return sorted(codes)
+
+    def speculation_pruned(self) -> bool:
+        """Whether branch speculation may have pruned an arm of this
+        stage's UDFs. The port does not speculate on branches (both arms
+        always run), so never."""
+        return False
+
+    def resolve_plan(self) -> ResolvePlan:
+        """The stage's resolve tiers (ResolvePlan), memoized."""
+        memo = getattr(self, "_resolve_plan_memo", None)
+        if memo is None:
+            EC = ExceptionCode
+            codes = self.possible_exception_codes()
+            has_general_decode = any(
+                isinstance(op, L.DecodeOperator) and op.general is not None
+                for op in self.ops)
+            retirable = {EC.NORMALCASEVIOLATION, EC.BADPARSE_STRING_INPUT,
+                         EC.NULLERROR}
+            use_general = self.speculation_pruned() or (
+                has_general_decode and any(c in retirable for c in codes))
+            exact_codes = frozenset(
+                int(c) for c in codes
+                if exception_class_for_code(int(c)) is not None)
+            interpreter_possible = self.has_resolvers or any(
+                int(c) not in exact_codes for c in codes)
+            if not codes:
+                tier = "none"
+            elif use_general and interpreter_possible:
+                tier = "general+interpreter"
+            elif use_general:
+                tier = "general"
+            elif interpreter_possible:
+                tier = "interpreter"
+            else:
+                tier = "exact-exit"
+            memo = self._resolve_plan_memo = ResolvePlan(
+                codes=tuple(int(c) for c in codes), exact_codes=exact_codes,
+                use_general=use_general,
+                interpreter_possible=interpreter_possible, tier=tier)
+        return memo
 
     def build_device_fn(self, input_schema: Optional[T.RowType] = None,
                         compaction: bool = False,
-                        fold: bool = True) -> Callable:
+                        fold: bool = True, general: bool = False,
+                        str_cols: frozenset = frozenset()) -> Callable:
         """The fused fast-path function: staged tensors -> output tensors +
         '#err' + '#keep'. Raises NotCompilable (when called) if a fused UDF
         is outside the compiled subset; the backend then interprets every
@@ -82,12 +259,24 @@ class TransformStage:
         With `fold` and a fused `fold_spec`, the outputs are not the rows but
         the fold's partials (`_emit_fused_fold`) beside '#err' and '#keep'.
         A fold expression outside the compiled subset sets `fold_failed`
-        and the stage returns its rows instead."""
+        and the stage returns its rows instead.
+
+        `general=True` builds the compiled general-case tier (reference:
+        StageBuilder.cc:1145 generateResolveCodePath): the cell decode runs
+        under the decode's general-case types (`_emit_decode`), the
+        columns in `str_cols` (positions in the decode) as Option[str],
+        with no compaction and no fused fold. Raises NotCompilable at once
+        when the stage has no general-case decode."""
         schema = input_schema if input_schema is not None \
             else self.input_schema
         ops = self.ops
-        plan = _compaction_plan(ops) if compaction else {}
-        spec = self.fold_spec if fold and not self.fold_failed else None
+        if general and not any(
+                isinstance(op, L.DecodeOperator) and op.general is not None
+                for op in ops):
+            raise NotCompilable("stage has no general-case decode")
+        plan = _compaction_plan(ops) if compaction and not general else {}
+        spec = self.fold_spec if fold and not self.fold_failed \
+            and not general else None
 
         def fn(arrays: dict) -> dict:
             rowvalid = arrays["#rowvalid"]
@@ -99,6 +288,9 @@ class TransformStage:
             bcur = b
             for op in ops:
                 ctx.cur_op = op.id
+                if isinstance(op, L.DecodeOperator):
+                    row = _emit_decode(ctx, op, row, general, str_cols)
+                    continue
                 row, keep = _emit_op(ctx, op, row, keep)
                 frac = plan.get(op.id)
                 if frac is not None and bcur >= _COMPACT_MIN_ROWS:
@@ -221,8 +413,6 @@ def _emit_fused_fold(spec, row: CV, fin, bcur: int, device) -> dict:
 
 
 def _emit_op(ctx: EmitCtx, op: L.LogicalOperator, row: CV, keep):
-    if isinstance(op, L.DecodeOperator):
-        return _emit_decode(ctx, op, row), keep
     if isinstance(op, L.SelectColumnsOperator):
         if row.elts is None or row.names is None:
             raise NotCompilable("selectColumns on an unnamed row")
@@ -265,18 +455,30 @@ def _emit_op(ctx: EmitCtx, op: L.LogicalOperator, row: CV, keep):
     raise NotCompilable(f"operator {type(op).__name__} not fusable")
 
 
-def _emit_decode(ctx: EmitCtx, op: L.DecodeOperator, row: CV) -> CV:
-    """Normal-case cell decode on the device (reference:
-    CSVParseRowGenerator.cc's generated parse). A null cell in a column
-    speculated non-Option raises NULLERROR; a cell that does not parse as
-    its column's type raises BADPARSE_STRING_INPUT, and a float cell that
-    parse_f64 leaves to CPython NORMALCASEVIOLATION. These rows re-run on
-    the interpreter, whose decode keeps the raw string where the parse
-    fails."""
+def _emit_decode(ctx: EmitCtx, op: L.DecodeOperator, row: CV,
+                 general: bool = False, str_cols: frozenset = frozenset()):
+    """Cell decode on the device (reference: CSVParseRowGenerator.cc's
+    generated parse).
+
+    The normal case decodes under the declared types. A null cell in a
+    column speculated non-Option raises NULLERROR; a cell that does not
+    parse as its column's type raises BADPARSE_STRING_INPUT, and a float
+    cell that parse_f64 leaves to CPython NORMALCASEVIOLATION. These rows
+    re-run on the general tier, then the interpreter.
+
+    `general` decodes under `op.general` (every column an Option, a
+    column sampled all null as Option[str]), and the columns in `str_cols`
+    as Option[str]: each cell then gets the value the interpreter's decode
+    gives it, or its row raises (BADPARSE_STRING_INPUT where a cell does
+    not parse, NORMALCASEVIOLATION where a parser leaves it to CPython)
+    and interprets."""
     frame = Frame(Emitter(ctx, {}), {})
     cells = row.elts if row.elts is not None else (row,)
+    decl = op.general if general else op.declared
     elts = []
-    for cv, t in zip(cells, op.declared.types):
+    for ci, (cv, t) in enumerate(zip(cells, decl.types)):
+        if general and ci in str_cols:
+            t = T.option(T.STR)
         base = t.without_option() if t.is_optional() else t
         sb, sl = cv.sbytes, cv.slen
         is_null = ctx.zeros() if cv.valid is None else ~cv.valid
@@ -298,9 +500,10 @@ def _emit_decode(ctx: EmitCtx, op: L.DecodeOperator, row: CV) -> CV:
             continue
         if base is T.I64:
             val, bad, route = S.parse_i64(sb, sl)
-            # a cell outside int64 violates the i64 column either way
-            bad = bad | route
-            route = None
+            if not general:
+                # a cell outside int64 violates the i64 column either way
+                bad = bad | route
+                route = None
         elif base is T.F64:
             # route: a float CPython reads that parse_f64 does not evaluate
             val, bad, route = S.parse_f64(sb, sl)
@@ -315,7 +518,7 @@ def _emit_decode(ctx: EmitCtx, op: L.DecodeOperator, row: CV) -> CV:
                               ExceptionCode.NORMALCASEVIOLATION)
         elts.append(CV(t=t, data=val, valid=~is_null) if t.is_optional()
                     else CV(t=base, data=val))
-    names = user_columns(op.declared)
+    names = user_columns(decl)
     if len(elts) == 1 and names is None:
         return elts[0]
     return tuple_cv(elts, names=names)
@@ -513,8 +716,11 @@ def _apply_projection(stage: TransformStage, output_required=None) -> None:
     keep = [cols.index(c) for c in req]
     new_src = src.project(keep)
     dec = stage.ops[0]
+    general = None if dec.general is None else T.row_of(
+        req, [dec.general.types[i] for i in keep])
     prev = L.DecodeOperator(new_src, T.row_of(
-        req, [dec.declared.types[i] for i in keep]), dec.null_values)
+        req, [dec.declared.types[i] for i in keep]), dec.null_values,
+        general=general)
     prev.id = dec.id
     new_ops = [prev]
     for op in stage.ops[1:]:

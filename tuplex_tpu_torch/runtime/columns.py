@@ -426,6 +426,17 @@ def stage_partition(part: Partition, device: torch.device) -> DeviceBatch:
     return DeviceBatch(arrays=arrays, n=n, b=b)
 
 
+def stage_rows(part: Partition, idx: np.ndarray,
+               device: torch.device) -> DeviceBatch:
+    """Rows `idx` of a partition (none of them boxed) staged on `device`
+    as a partition of their own, in that order: the general-case tier's
+    input."""
+    k = len(idx)
+    return stage_partition(
+        gather_partition(part, np.arange(k, dtype=np.int64),
+                         np.asarray(idx, dtype=np.int64), k), device)
+
+
 # ---------------------------------------------------------------------------
 # rebuild partitions from device outputs (host numpy arrays)
 # ---------------------------------------------------------------------------
