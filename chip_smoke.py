@@ -82,6 +82,19 @@ interpreter, the general-case tier and the exact exit finished, the
 general tier's and the interpreter's seconds, and microseconds per
 interpreter row.
 
+Phases 7, 9 and 10 print, for every stage of Q6, Q1, NYC 311, flights and
+Q19 (the build sides' plans included), the device handoff between stages:
+partitions handed off on the card, partitions sent by the host route and
+why (the budget, a leaf with no device layout, no device consumer), bytes
+copied each way and lazy leaves fetched whole. Q1, NYC 311, Q19 and
+flights then run twice with the backend's handoff budget at 0 (every
+partition by the host route) and once more with the handoff: every run's
+rows must equal the first run's, and the four wall times are printed. The run fails unless every intermediate
+stage of Q1, NYC 311 and Q19 (no slow path) hands off every partition and
+no data column is fetched. Flights and Q19 run once more each way with
+every copy timed (runtime/xferstats.py `TIMED`): each stage's wall time
+split into copies, waiting for the card, and host work.
+
 It prints one JSON line of kernel numbers, then the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs CUDA
 and the rest of the repository; without either it exits nonzero and prints
@@ -120,6 +133,7 @@ from tuplex_tpu_torch.ops import join_cuda, nfa_cuda      # noqa: E402
 from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
 from tuplex_tpu_torch.plan.physical import plan_stages    # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
+from tuplex_tpu_torch.runtime import xferstats            # noqa: E402
 from tuplex_tpu_torch.runtime.devprof import device_busy  # noqa: E402
 
 LOG_LINES = 1_891_715       # NASA-HTTP, July 1995: one month of requests
@@ -544,6 +558,110 @@ def query_line(name: str, ctx, wall: float, loop_s: float) -> str:
             f"{m.hostFoldedRows()}")
 
 
+def stage_kind(s: dict) -> str:
+    return "join" if "host_probed_rows" in s else \
+        "aggregate" if "device_rows" in s else "transform"
+
+
+def handoff_lines(name: str, m) -> None:
+    """One line per stage of a job (its build sides' plans included, in
+    the order they ran): partitions handed off on the card, partitions
+    sent by the host route and why, bytes copied each way, lazy leaves
+    fetched whole."""
+    for i, s in enumerate(m.stages):
+        print(f"  {name} stage {i} ({stage_kind(s)}): handoff parts "
+              f"{s['handoff_parts']}, host route parts "
+              f"{s['host_route_parts']} (budget {s['host_route_budget']}, "
+              f"no layout {s['host_route_no_layout']}, no consumer "
+              f"{s['host_route_no_consumer']}), h2d {s['h2d_bytes']} "
+              f"bytes, d2h {s['d2h_bytes']} bytes, forced leaves "
+              f"{s['forced_leaves']}, wall {s['wall_s']:.3f} s")
+
+
+def intermediate(m) -> list:
+    """The stages whose output partitions have a consumer on the card:
+    not the last of a plan (the job's or a build side's), nor one with a
+    fused fold (its output is the fold's partials)."""
+    return [s for s in m.stages if s["host_route_no_consumer"] == 0
+            and s["handoff_parts"] + s["host_route_parts"] > 0]
+
+
+def check_clean_handoff(name: str, m) -> None:
+    """A job with no slow path: every partition of every intermediate
+    stage handed off on the card, and no data column fetched (the
+    producers fetched control arrays only, no lazy leaf was fetched)."""
+    mid = intermediate(m)
+    if not mid or any(s["handoff_parts"] == 0 or s["host_route_parts"] or
+                      s.get("fetched_row_columns", 0) for s in mid) or \
+            any(s["forced_leaves"] for s in m.stages):
+        raise AssertionError(f"{name}: a partition of an intermediate "
+                             "stage took the host route or fetched a data "
+                             "column (the stage lines above)")
+
+
+def budget0_runs(name: str, make, want, wall: float):
+    """After the job's run with the handoff (`wall` s, rows `want`), the
+    job `make(ctx)` twice with the backend's handoff budget at 0 (every
+    partition by the host route), then once more with the handoff: the
+    two routes in the order A B B A. Every run's rows must equal `want`.
+    Prints the four wall times and each route's bytes copied. Returns the
+    last budget-0 run's DataSet."""
+    walls = {"handoff": [wall], "budget 0": []}
+    copied = {}
+    for budget in (0, 0, None):
+        ctx = Context()
+        route = "handoff" if budget is None else "budget 0"
+        if budget is not None:
+            ctx.backend.handoff_budget = budget
+        t0 = time.perf_counter()
+        ds = make(ctx)
+        got = ds.collect()
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+        if got != want:
+            raise AssertionError(f"{name}: a {route} run's rows differ "
+                                 "from the first run's")
+        if budget is not None and any(s["handoff_parts"]
+                                      for s in ctx.metrics.stages):
+            raise AssertionError(f"{name}: a partition handed off at "
+                                 "budget 0")
+        copied[route] = (ctx.metrics.h2dBytes(), ctx.metrics.d2hBytes())
+        if budget is not None:
+            ds0 = ds
+    print(f"{name}: handoff runs " + " / ".join(
+        f"{w:.3f}" for w in walls["handoff"]) + " s, budget-0 runs " +
+        " / ".join(f"{w:.3f}" for w in walls["budget 0"]) +
+        " s (run in the order handoff, budget 0, budget 0, handoff), rows "
+        f"equal; h2d / d2h bytes with the handoff {copied['handoff'][0]} / "
+        f"{copied['handoff'][1]}, at budget 0 {copied['budget 0'][0]} / "
+        f"{copied['budget 0'][1]}")
+    return ds0
+
+
+def copy_split(name: str, make) -> None:
+    """The job once with the handoff and once at budget 0, every copy
+    timed (runtime/xferstats.py TIMED): each stage's wall time split into
+    copies, waiting for the card before a copy, and host work."""
+    for budget in (None, 0):
+        ctx = Context()
+        if budget is not None:
+            ctx.backend.handoff_budget = budget
+        xferstats.TIMED = True
+        try:
+            make(ctx).collect()
+            torch.cuda.synchronize()
+        finally:
+            xferstats.TIMED = False
+        route = "handoff" if budget is None else "budget 0"
+        for i, s in enumerate(ctx.metrics.stages):
+            w, c, q = s["wall_s"], s["copy_s"], s["wait_s"]
+            print(f"  {name} ({route}, copies timed) stage {i} "
+                  f"({stage_kind(s)}): wall {w:.3f} s = copies {c:.3f} s "
+                  f"+ waiting for the card {q:.3f} s + host work "
+                  f"{w - c - q:.3f} s; h2d {s['h2d_bytes']} bytes, d2h "
+                  f"{s['d2h_bytes']} bytes")
+
+
 def tpch_phase(tmp: str, total_calls: dict) -> None:
     """Q6 and Q1 on the card against the plain loops on the same file."""
     path = os.path.join(tmp, "lineitem.csv")
@@ -586,6 +704,7 @@ def tpch_phase(tmp: str, total_calls: dict) -> None:
         q6_bits.add(got.hex())
         print(query_line(f"q6 run {run}", ctx, wall, read_s + q6_s) +
               f"; revenue {got!r} (python {want6!r})")
+        handoff_lines(f"q6 run {run}", m)
     if len(q6_bits) != 1:
         raise AssertionError(f"q6: two runs gave {q6_bits}")
     wall, busy, _ = device_busy(lambda: tpch.q6(Context().csv(path))
@@ -612,8 +731,11 @@ def tpch_phase(tmp: str, total_calls: dict) -> None:
                                 for v in r) for r in got]))
         print(query_line(f"q1 run {run}", ctx, wall, read_s + q1_s) +
               f"; {len(got)} groups in first-occurrence order")
+        handoff_lines(f"q1 run {run}", ctx.metrics)
+        check_clean_handoff("q1", ctx.metrics)
     if len(q1_bits) != 1:
         raise AssertionError("q1: the two runs differ")
+    budget0_runs("q1", lambda c: tpch.q1(c.csv(path)), got, wall)
     os.remove(path)
 
     dirty = os.path.join(tmp, "dirty.csv")
@@ -660,6 +782,10 @@ def nyc311_phase(tmp: str) -> None:
         raise AssertionError(f"nyc311: {got} != python {want}")
     print(query_line(f"nyc311 ({NYC311_ROWS} rows -> {len(got)} distinct "
                      f"zip codes)", ctx, wall, loop_s))
+    handoff_lines("nyc311", ctx.metrics)
+    check_clean_handoff("nyc311", ctx.metrics)
+    budget0_runs("nyc311", lambda c: nyc311.build_pipeline(c, path), got,
+                 wall)
     os.remove(path)
 
 
@@ -680,7 +806,7 @@ def key_words(rng, n: int, width: int, leaf_width: int, dev,
         lens[take] = pick_from[1][src]
     valid = rng.random(n) >= 0.01
     layout = KeyLayout(T.STR, width, has_valid=True)
-    key, _ = layout.key_leaf(C.StrLeaf(b, lens, valid), {}, n)
+    key, _ = layout.key_leaf(C.StrLeaf(b, lens, valid), {}, n, dev)
     return layout.words(key, dev), b, lens
 
 
@@ -706,7 +832,7 @@ def int_probe_phase(rng, u: int, dev):
 
     def sig(vals):
         leaf, _ = layout.key_leaf(C.NumericLeaf(vals.astype(np.int64)), {},
-                                  len(vals))
+                                  len(vals), dev)
         return layout.words(leaf, dev)
 
     vals = rng.choice(4 * u, size=u, replace=False) + 1
@@ -843,6 +969,18 @@ def flights_phase(tmp: str):
         print(f"  flights stage {i}: " + ", ".join(
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in s.items()))
+    handoff_lines("flights", m)
+    if len(intermediate(m)) != 4 or any(
+            s["handoff_parts"] == 0 for s in intermediate(m)):
+        raise AssertionError("flights: an intermediate stage handed off "
+                             "no partition")
+    ds0 = budget0_runs("flights",
+                       lambda c: flights.build_pipeline(c, *paths), got,
+                       wall)
+    if ds0.exception_counts() != excs:
+        raise AssertionError(f"flights at budget 0: exceptions "
+                             f"{ds0.exception_counts()} != python {excs}")
+    copy_split("flights", lambda c: flights.build_pipeline(c, *paths))
     for p in paths:
         os.remove(p)
     return launches, inputs
@@ -925,6 +1063,8 @@ def q19_phase(tmp: str):
                                  f"exceptions {ds.exception_counts()}, "
                                  f"join {join}, interpreter rows "
                                  f"{m.interpreterRows()}")
+        handoff_lines(f"q19 run {run}", m)
+        check_clean_handoff("q19", m)
         bits.add(got.hex())
         print(f"q19 run {run}: collect() {wall:.3f} s (python loop "
               f"{loop_s:.3f} s); revenue {got!r} (python {want!r}); join "
@@ -938,6 +1078,8 @@ def q19_phase(tmp: str):
         raise AssertionError(f"q19: two runs gave {bits}")
     if launches <= 0:
         raise AssertionError("q19 did not launch the join probe kernel")
+    budget0_runs("q19", lambda c: tpch.q19(c, part, li), [got], wall)
+    copy_split("q19", lambda c: tpch.q19(c, part, li))
     print(f"q19: join_probe launches {launches} in two runs")
     os.remove(part)
     os.remove(li)

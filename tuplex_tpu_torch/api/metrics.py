@@ -65,6 +65,18 @@ class Metrics:
         stage without resolve or ignore, a Python exception class)."""
         return int(self._sum("exact_exit_rows"))
 
+    def h2dBytes(self) -> int:
+        """Bytes the stages copied from the host to the device: staged
+        leaves, join leaves and key columns, row indices, resolved rows
+        scattered into views (runtime/xferstats.py)."""
+        return int(self._sum("h2d_bytes"))
+
+    def d2hBytes(self) -> int:
+        """Bytes the stages copied from the device to the host: stage
+        outputs (control arrays alone for a partition handed off), rows
+        gathered for the slow paths, lazy leaves fetched whole."""
+        return int(self._sum("d2h_bytes"))
+
     def resolveTierMix(self) -> dict:
         """The share of the rows that left the fast path which each resolve
         tier finished: {'exact_exit': f, 'general': f, 'interpreter': f}

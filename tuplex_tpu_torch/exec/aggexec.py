@@ -21,6 +21,12 @@ recognized runs on the interpreter row by row. Rows folded or deduplicated
 on the host count as the stage's `host_folded_rows`, apart from the
 transform stages' `interpreter_rows`.
 
+A partition handed off by the stage before (exec/local.py) is folded and
+deduplicated from its device view: `stage_partition` takes the view, and
+the key tuples and the rows the interpreter folds are gathered from it
+on the device, so only those rows are fetched. A fused fold's
+`FoldPartial` has no partition and is unchanged.
+
 What the port fixes where the reference's device path differs from a
 plain loop: `aggregateByKey` and `unique` emit their groups in the order
 their first row folded (the reference sorts a partition's keys by bytes);
@@ -44,6 +50,7 @@ from ..ops import fold as F
 from ..plan import aggregates as A
 from ..plan.physical import eval_fold_terms
 from ..runtime import columns as C
+from ..runtime import xferstats
 
 
 @dataclass
@@ -64,28 +71,34 @@ class FoldPartial:
 class AggregateExecutor:
     def __init__(self, backend):
         self.device = backend.device
+        self.budget = backend.handoff_budget
         self.device_rows = 0     # rows folded or deduplicated on the device
         self.host_rows = 0       # rows folded on the host (unique: boxed
                                  # rows, which skip the device)
         self.device_s = 0.0
 
-    def execute(self, stage, partitions: list):
-        from .local import StageResult
+    def execute(self, stage, partitions: list, consumer=False):
+        from .local import Handoff, StageResult
 
         op = stage.op
         t0 = time.perf_counter()
+        snap = xferstats.snapshot()
         if isinstance(op, A.UniqueOperator):
             parts, excs = self._unique(op, partitions)
         elif isinstance(op, (A.AggregateOperator, A.AggregateByKeyOperator)):
             parts, excs = self._aggregate(op, partitions)
         else:
             raise NotCompilable(f"aggregate stage op {op!r}")
+        handoff = Handoff(self.budget, consumer)
+        for p in parts:
+            handoff.offer_host(p, self.device)
         wall = time.perf_counter() - t0
         return StageResult(parts, excs, {
             "wall_s": wall, "fast_path_s": self.device_s,
             "slow_path_s": wall - self.device_s,
             "host_folded_rows": self.host_rows,
-            "device_rows": self.device_rows, "exception_rows": len(excs)})
+            "device_rows": self.device_rows, "exception_rows": len(excs),
+            **handoff.metrics(), **xferstats.since(snap)})
 
     # ------------------------------------------------------------------
     def _unique(self, op, partitions):
@@ -97,6 +110,7 @@ class AggregateExecutor:
         schema = None
         for part in partitions:
             if part.num_rows == 0:
+                C.release_view(part)
                 continue
             schema = schema or part.schema
             first = self._distinct_rows(part)
@@ -110,6 +124,7 @@ class AggregateExecutor:
                 except TypeError:
                     pass    # an unhashable row stays
                 out.append(r)
+            C.release_view(part)
         if not out:
             return [], []
         single = len(schema.columns) == 1
@@ -128,7 +143,7 @@ class AggregateExecutor:
         except NotCompilable:
             return None
         _, first = F.factorize(sig, batch.arrays["#rowvalid"])
-        first = first.cpu().numpy()
+        first = xferstats.to_host(first)
         self.device_rows += part.n_normal()
         self.host_rows += len(part.fallback)
         self.device_s += time.perf_counter() - t0
@@ -148,6 +163,7 @@ class AggregateExecutor:
                 self._python_fold(op, part.rows, groups, None, excs)
                 continue
             if part.num_rows == 0:
+                C.release_view(part)
                 continue
             kidx = [part.schema.columns.index(c) for c in op.key_columns] \
                 if by_key else None
@@ -156,6 +172,7 @@ class AggregateExecutor:
             if res is None:
                 self._python_fold(op, C.decode_rows(
                     part, range(part.num_rows)), groups, kidx, excs)
+                C.release_view(part)
                 continue
             # a key whose every row raised has no segment: it emits no row
             # unless the interpreter folds one of its rows
@@ -169,6 +186,7 @@ class AggregateExecutor:
                     new[k] = firsts[si]
             self._python_fold(op, C.decode_rows(part, bad), groups, kidx,
                               excs, bad, new)
+            C.release_view(part)
             if new:
                 # keys new in this partition enter in the order of their
                 # first folded row, device or interpreter
@@ -221,7 +239,7 @@ class AggregateExecutor:
             sig = F.signature(cvs, b, self.device)
         except NotCompilable:
             return None
-        bad = np.nonzero((rowvalid & ~ok).cpu().numpy()[:part.num_rows])[0]
+        bad = np.nonzero(xferstats.to_host(rowvalid & ~ok)[:part.num_rows])[0]
         bad = sorted(set(bad.tolist()) | set(part.fallback))
         if spec.in_order(bool(risk), bool(bad)):
             return None
@@ -229,10 +247,11 @@ class AggregateExecutor:
         nseg = first.shape[0]
         sel = codes >= 0
         cs = codes[sel]
-        cols = [F.segment_reduce(d[sel], cs, nseg, r).tolist()
+        cols = [xferstats.to_host(F.segment_reduce(d[sel], cs, nseg,
+                                                   r)).tolist()
                 for d, r in zip(datas, spec.reducers)]
         partials = [list(r) for r in zip(*cols)]
-        firsts = first.tolist()
+        firsts = xferstats.to_host(first).tolist()
         keys = C.decode_key_tuples(part, firsts, kidx)
         self.device_rows += cs.numel()
         self.device_s += time.perf_counter() - t0

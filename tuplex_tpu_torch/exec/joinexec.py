@@ -22,6 +22,15 @@ device:
     of tuples and host objects too); a left join's unmatched rows get None
     on the right.
 
+The device handoff (exec/local.py): a left partition handed off by the
+stage before is probed and gathered from its device view (its key words
+from the view's key arrays, the few boxed rows' keys written on the
+device), and when the join's output feeds another stage, join or
+aggregate, the gathered leaves stay on the device as the output's view,
+with host leaves fetched only when read; output rows assembled in Python
+are not `#rowvalid` there. The build side's device copy is charged to the
+stage's handoff budget once.
+
 Output rows keep the left rows' order, each with its matches in the build
 side's order, as a plain loop over a dict of lists gives them
 (plan/joins.py `join_rows`). A row whose left or build row is boxed
@@ -64,40 +73,55 @@ from ..core.errors import TuplexException
 from ..ops.join import flip, join_probe, probe_index
 from ..plan.joins import join_rows, joined_row
 from ..runtime import columns as C
+from ..runtime import xferstats
+from ..runtime.xferstats import to_device, to_host
 
 _KEY_TYPES = (T.I64, T.F64, T.BOOL, T.STR, T.NULL)
+_NP_DTYPES = {torch.int64: np.int64, torch.float64: np.float64,
+              torch.bool: np.bool_}
 
 
 class JoinExecutor:
     def __init__(self, backend):
         self.device = backend.device
+        self.budget = backend.handoff_budget
 
-    def execute(self, stage, partitions: list, build_parts: list):
+    def execute(self, stage, partitions: list, build_parts: list,
+                consumer=False):
         """Join the left `partitions` with `build_parts`, the output of the
-        build side's plan."""
-        from .local import ExceptionRecord, StageResult
+        build side's plan. `consumer` is who takes the join's output
+        (plan/physical.py `consumer_kind`)."""
+        from .local import ExceptionRecord, Handoff, StageResult
 
         op = stage.op
         t0 = time.perf_counter()
+        snap = xferstats.snapshot()
+        handoff = Handoff(self.budget, consumer)
         big = _concat(build_parts, build_parts[0].schema if build_parts
                       else op.right.schema())
         build = _Build.make(op, big, self.device)
+        if build is not None:
+            handoff.left -= build.nbytes
         t_build = time.perf_counter() - t0
         host_build = None
         out_parts, device_rows, host_rows = [], 0, 0
         errors: list = []
         for part in partitions:
-            outp = build.probe(part, errors) if build is not None else None
+            outp = build.probe(part, errors, handoff) \
+                if build is not None else None
             if outp is not None:
                 device_rows += part.num_rows
             else:
                 if host_build is None:
                     host_build = _row_values(big)
                 outp = _host_join(op, part, big.schema, host_build, errors)
+                handoff.offer_host(outp, self.device)
                 host_rows += part.num_rows
+            C.release_view(part)
             out_parts.append(outp)
         excs = [ExceptionRecord(op.id, name, row) for row, name in errors]
         return StageResult(out_parts, excs, {
+            **handoff.metrics(), **xferstats.since(snap),
             "wall_s": time.perf_counter() - t0, "build_s": t_build,
             "build_rows": big.num_rows,
             "build_keys": build.n_keys if build else 0,
@@ -126,9 +150,12 @@ def _key_index(schema: T.RowType, name: str) -> int:
 def _leaf_tensors(leaf, device) -> dict:
     """A numeric or str leaf's arrays on `device`: 'd' data, 'b' bytes,
     'l' lengths, 'v' validity (where the leaf has them); {} for other
-    leaves, which stay on the host."""
+    leaves, which stay on the host. A leaf of tensors (a device view's)
+    is not copied."""
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        return to_device(a, device)
 
     out = {}
     if isinstance(leaf, C.NumericLeaf):
@@ -174,41 +201,53 @@ class KeyLayout:
         return all(v is None or T.python_value_conforms(v, self.base)
                    for v in keys.values())
 
-    def key_leaf(self, leaf, keys: dict, n: int):
-        """(leaf, unmatchable): a copy of the key leaf of n rows in this
-        layout, with the boxed rows' keys (`keys`: row -> a value that
-        conforms) written into their slots, and the rows whose None key
-        nothing on the build side equals (the layout has no valid byte)."""
-        unmatchable = np.zeros(n, dtype=np.bool_)
+    def key_leaf(self, leaf, keys: dict, n: int, device):
+        """(leaf, unmatchable): the key leaf of n rows (host arrays or a
+        device view's tensors) in this layout, a copy on `device` with the
+        boxed rows' keys (`keys`: row -> a value that conforms) written
+        into their slots there, and the [n] bool tensor of the rows whose
+        None key nothing on the build side equals (the layout has no
+        valid byte)."""
+        unmatchable = torch.zeros(n, dtype=torch.bool, device=device)
         if self.base is T.NULL:
             return C.NullLeaf(n), unmatchable
-        if isinstance(leaf, C.StrLeaf):
+        t = _leaf_tensors(leaf, device)
+        if "b" in t:
             w = max(self.width, 1)
-            b = C.pad_to(leaf.bytes[:, :w], w, axis=1)
-            out = C.StrLeaf(np.array(b, dtype=np.uint8),
-                            np.array(leaf.lengths, dtype=np.int32))
+            b = t["b"][:, :w]
+            if b.shape[1] < w:
+                b = torch.nn.functional.pad(b, (0, w - b.shape[1]))
+            out = C.StrLeaf(b.to(torch.uint8).clone(),
+                            t["l"].to(torch.int32).clone())
         else:
-            out = C.NumericLeaf(np.array(leaf.data))
-        valid = None if leaf.valid is None else np.array(leaf.valid)
-        for i, v in keys.items():
-            if v is None:
-                if valid is None:
-                    valid = np.ones(n, dtype=np.bool_)
-                valid[i] = False
-                continue
+            out = C.NumericLeaf(t["d"].clone())
+        valid = t["v"].clone() if "v" in t else None
+        none = np.asarray([i for i, v in keys.items() if v is None],
+                          dtype=np.int64)
+        some = np.asarray([i for i, v in keys.items() if v is not None],
+                          dtype=np.int64)
+        if len(none):
+            if valid is None:
+                valid = torch.ones(n, dtype=torch.bool, device=device)
+            valid[to_device(none, device)] = False
+        if len(some):
+            at = to_device(some, device)
             if valid is not None:
-                valid[i] = True
+                valid[at] = True
+            vals = [keys[i] for i in some.tolist()]
             if isinstance(out, C.StrLeaf):
-                e = v.encode("utf-8")
-                out.bytes[i] = 0
-                out.bytes[i, :min(len(e), out.width)] = \
-                    np.frombuffer(e[:out.width], np.uint8)
-                out.lengths[i] = len(e)
+                enc = C.encode_str_leaf(vals, False)
+                mat = np.zeros((len(vals), out.width), dtype=np.uint8)
+                cw = min(out.width, enc.width)
+                mat[:, :cw] = enc.bytes[:, :cw]
+                out.bytes[at] = to_device(mat, device)
+                out.lengths[at] = to_device(enc.lengths, device)
             else:
-                out.data[i] = v
+                out.data[at] = to_device(np.asarray(
+                    vals, dtype=_NP_DTYPES[out.data.dtype]), device)
         if self.has_valid:
             out.valid = valid if valid is not None else \
-                np.ones(n, dtype=np.bool_)
+                torch.ones(n, dtype=torch.bool, device=device)
         elif valid is not None:
             unmatchable = ~valid
         return out, unmatchable
@@ -271,7 +310,7 @@ class _Build:
             if not self.layout.conforms(keys):
                 return None      # 1 == 1.0 == True: Python's equality
             words = self.layout.words(
-                self.layout.key_leaf(leaf, keys, n)[0], device)
+                self.layout.key_leaf(leaf, keys, n, device)[0], device)
             if words is None:
                 return None      # NaN != NaN
             kept = torch.from_numpy(np.nonzero(reach)[0]).to(device)
@@ -290,19 +329,24 @@ class _Build:
         self.rows = rows
         self.leaves = {p: _leaf_tensors(lf, device)
                        for p, lf in self.big.leaves.items()}
+        self.nbytes = sum(a.nbytes for t in self.leaves.values()
+                          for a in t.values())
         boxed = np.zeros(self.big.num_rows, dtype=np.bool_)
         boxed[list(rows)] = True
-        self.boxed = torch.from_numpy(boxed).to(device)
+        self.boxed = to_device(boxed, device)
         return self
 
-    def probe(self, part: C.Partition, errors: list
+    def probe(self, part: C.Partition, errors: list, handoff
               ) -> Optional[C.Partition]:
         """The partition joined on the device, its keyless boxed rows'
         exception records appended to `errors`; None when it must take the
-        host dict path."""
+        host dict path. `handoff` (exec/local.py `Handoff`) routes the
+        output: its gathered leaves stay on the device as its view, or
+        are fetched."""
         op, dev = self.op, self.device
         lk = _key_index(part.schema, op.left_column)
         n = part.num_rows
+        src = C.source_leaves(part)
         rows = _boxed_rows(part)
         keys, errs = {}, []
         keep = np.ones(n, dtype=np.bool_)       # rows with a key
@@ -325,19 +369,19 @@ class _Build:
             if _base(part.schema.types[lk]) is not self.layout.base or \
                     not self.layout.conforms(keys):
                 return None      # 1 == 1.0 == True: Python's equality
-            leaf, unmatchable = self.layout.key_leaf(
-                part.leaves[str(lk)], keys, n)
+            leaf, unmatchable = self.layout.key_leaf(src[str(lk)], keys, n,
+                                                     dev)
             words = self.layout.words(leaf, dev)
             if words is None:
                 return None      # NaN != NaN
             pos, matched = join_probe(words, self.index)
-            matched &= ~torch.from_numpy(unmatchable | nohash).to(dev)
+            matched &= ~(unmatchable | to_device(nohash, dev))
         errors.extend(errs)
         cnt = torch.where(matched, self.counts[pos], 0) if self.n_keys \
             else torch.zeros(n, dtype=torch.int64, device=dev)
         left = op.how == "left"
         per = torch.where(matched, cnt, 1) if left else cnt
-        per = torch.where(torch.from_numpy(keep).to(dev), per, 0)
+        per = torch.where(to_device(keep, dev), per, 0)
         m = int(per.sum())
         left_idx = torch.repeat_interleave(
             torch.arange(n, device=dev), per, output_size=m)
@@ -352,9 +396,9 @@ class _Build:
             build_row = torch.zeros(m, dtype=torch.int64, device=dev)
 
         cols, types, sources = op.output_layout(part.schema, self.big.schema)
-        lleaves = {p: _leaf_tensors(lf, dev) for p, lf in part.leaves.items()}
-        gather = [_Gather(part, lleaves, left_idx, None),
-                  _Gather(self.big, self.leaves, build_row,
+        lleaves = {p: _leaf_tensors(lf, dev) for p, lf in src.items()}
+        gather = [_Gather(src, lleaves, left_idx, None),
+                  _Gather(self.big.leaves, self.leaves, build_row,
                           has if left else None)]
         leaves = {}
         for j, (side, ci) in enumerate(sources):
@@ -362,14 +406,22 @@ class _Build:
                 leaves[path] = gather[side].leaf(
                     str(ci) + path[len(str(j)):], lt, m)
         outp = C.Partition(schema=T.row_of(cols, types), num_rows=m,
-                           leaves=leaves, start_index=part.start_index)
+                           start_index=part.start_index)
+        view = None
+        if handoff.route(C.view_nbytes(leaves, m)):
+            view = C.gather_view(leaves, m, dev)
+            C.hand_off(outp, view)
+        else:
+            outp.leaves = {p: C.leaf_to_host(lf) for p, lf in leaves.items()}
         lbox = np.zeros(n, dtype=np.bool_)
         lbox[list(rows)] = True
-        boxed_out = torch.from_numpy(lbox).to(dev)[left_idx] | \
+        boxed_out = to_device(lbox, dev)[left_idx] | \
             (has & self.boxed[build_row])
         if bool(boxed_out.any()):
             self._box_rows(part, rows, outp, lk, boxed_out, left_idx,
                            build_row, has)
+            if view is not None:
+                view.arrays["#rowvalid"][:m] &= ~boxed_out
         return outp
 
     def _box_rows(self, part, rows, outp, lk, boxed_out, left_idx,
@@ -377,14 +429,14 @@ class _Build:
         """Output rows with a boxed left or build row, assembled in Python
         as the host dict path assembles them, and boxed in their slots."""
         slots = torch.nonzero(boxed_out)[:, 0]
-        li = left_idx[slots].cpu().numpy()
-        bi = build_row[slots].cpu().numpy()
-        hv = has[slots].cpu().numpy().tolist()
+        li = to_host(left_idx[slots])
+        bi = to_host(build_row[slots])
+        hv = to_host(has[slots]).tolist()
         lrows = _rows_at(part, rows, li)
         brows = _rows_at(self.big, self.rows, bi)
         n_right = len(self.big.schema.columns)
         outp.normal_mask = np.ones(outp.num_rows, dtype=np.bool_)
-        for s, lrow, brow, h in zip(slots.cpu().numpy().tolist(), lrows,
+        for s, lrow, brow, h in zip(to_host(slots).tolist(), lrows,
                                     brows, hv):
             outp.normal_mask[s] = False
             outp.fallback[s] = joined_row(lrow, lk, brow if h else None,
@@ -392,43 +444,44 @@ class _Build:
 
 
 class _Gather:
-    """One side's leaves gathered at its output rows `idx` (device int64
-    [m]); with `has`, as Option: None where a left join found no match."""
+    """One side's leaves (`leaves`: host leaves or a device view's, by
+    path; `dev_leaves`: their arrays on the device) gathered at its output
+    rows `idx` (device int64 [m]); with `has`, as Option: None where a left
+    join found no match. Output leaves are tensors on the device, but for
+    host objects."""
 
-    def __init__(self, part: C.Partition, dev_leaves: dict,
+    def __init__(self, leaves: dict, dev_leaves: dict,
                  idx: torch.Tensor, has: Optional[torch.Tensor]):
-        self.part, self.dev_leaves, self.idx, self.has = \
-            part, dev_leaves, idx, has
+        self.leaves, self.dev_leaves, self.idx, self.has = \
+            leaves, dev_leaves, idx, has
         self._host = None
 
     def leaf(self, path: str, lt: T.Type, m: int):
         """The output leaf of type `lt` from the source leaf at `path`."""
-        src = self.part.leaves.get(path)
+        src = self.leaves.get(path)
         has = self.has
         if src is None:
             # the whole-tuple validity of a tuple column made Option
-            return C.NumericLeaf(has.cpu().numpy())
+            return C.NumericLeaf(has)
         if isinstance(src, C.NullLeaf):
             if has is not None and _base(lt) is T.EMPTYTUPLE:
-                return C.NumericLeaf(np.zeros(m, dtype=np.bool_),
-                                     has.cpu().numpy())
+                return C.NumericLeaf(torch.zeros_like(has), has)
             return C.NullLeaf(m)
         if isinstance(src, C.ObjectLeaf):
             if self._host is None:
-                self._host = self.idx.cpu().numpy().tolist()
+                self._host = to_host(self.idx).tolist()
             vals = [src.values[i] for i in self._host]
             if has is not None:
                 vals = [v if h else None
-                        for v, h in zip(vals, has.cpu().numpy().tolist())]
+                        for v, h in zip(vals, to_host(has).tolist())]
             return C.ObjectLeaf(vals)
         g = {k: a[self.idx] for k, a in self.dev_leaves[path].items()}
         if has is not None:
             g = {"d": g["d"] & has} if path.endswith("#opt") else \
                 _none_where_unmatched(g, has)
-        h = {k: a.cpu().numpy() for k, a in g.items()}
-        if "b" in h:
-            return C.StrLeaf(h["b"], h["l"], h.get("v"))
-        return C.NumericLeaf(h["d"], h.get("v"))
+        if "b" in g:
+            return C.StrLeaf(g["b"], g["l"], g.get("v"))
+        return C.NumericLeaf(g["d"], g.get("v"))
 
 
 def _none_where_unmatched(g: dict, has: torch.Tensor) -> dict:

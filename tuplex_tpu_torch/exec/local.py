@@ -27,6 +27,22 @@ whole-dataset fold fetches the fold's partials and per-row flags, not its
 rows (exec/aggexec.py `FoldPartial`); an AggregateStage runs on the
 AggregateExecutor. `run_plan` runs a job's stages in order, a JoinStage
 on the JoinExecutor after its build side's plan.
+
+The device handoff (the reference's `execute_any(intermediate=)`): a
+stage whose output feeds another stage, a join or an aggregate
+(plan/physical.py `consumer_kind`) fetches only its control arrays
+('#err', '#keep', '#rowidx', '#overflow'). Its output partitions keep
+their columns on the device as a view gathered at the compiled rows'
+sources (runtime/columns.py `DeviceView`), with host leaves fetched from
+the view only when read. Rows the general tier or the interpreter
+finished are encoded on the host and only they are copied into the view;
+rows that stay boxed are not `#rowvalid` there. The consumer stages from
+the view, and its slow paths gather their rows from it; it drops the view
+when it has finished the partition. `Handoff` counts, per stage, the
+partitions handed off and the ones that took the host route, by reason:
+the stage's budget (`LocalBackend.handoff_budget`, runtime/torchcfg.py;
+0 sends every partition by the host route) would be exceeded, a leaf has
+no device layout, or nothing on the device consumes the output.
 """
 
 from __future__ import annotations
@@ -46,8 +62,11 @@ from ..core.errors import (ExceptionCode, NotCompilable,
 from ..core.row import Row
 from ..plan import logical as L
 from ..plan.physical import (AggregateStage, JoinStage, TransformStage,
-                             plan_stages, runtime_output_columns)
+                             consumer_kind, plan_stages,
+                             runtime_output_columns)
 from ..runtime import columns as C
+from ..runtime import xferstats
+from ..runtime.torchcfg import handoff_budget_bytes
 
 _WINDOW = 2   # partitions dispatched ahead of the one being merged
 
@@ -69,18 +88,69 @@ class StageResult:
     metrics: dict = field(default_factory=dict)
 
 
+class Handoff:
+    """One stage's device handoff: its consumer (plan/physical.py
+    `consumer_kind`), the device bytes its output views may still take,
+    and the route each output partition took."""
+
+    REASONS = ("budget", "no_layout", "no_consumer")
+
+    def __init__(self, budget: int, consumer):
+        self.consumer, self.budget, self.left = consumer, budget, budget
+        self.parts = 0
+        self.host = {r: 0 for r in self.REASONS}
+
+    def route(self, nbytes: Optional[int]) -> bool:
+        """Whether an output partition whose view takes `nbytes` (None: a
+        leaf without a device layout) is handed off on the device; counts
+        the route it takes and charges the budget."""
+        if not self.consumer:
+            reason = "no_consumer"
+        elif nbytes is None:
+            reason = "no_layout"
+        elif nbytes > self.left:
+            reason = "budget"
+        else:
+            self.left -= nbytes
+            self.parts += 1
+            return True
+        self.host[reason] += 1
+        return False
+
+    def offer_host(self, part: C.Partition, device) -> None:
+        """Route an output partition built on the host: handed off, it is
+        staged on the device now."""
+        if self.route(C.view_nbytes(part.leaves, part.num_rows)):
+            C.attach_staged_view(part, device)
+
+    def metrics(self) -> dict:
+        m = {"handoff_parts": self.parts,
+             "host_route_parts": sum(self.host.values()),
+             "handoff_budget_bytes": self.budget}
+        m.update({f"host_route_{r}": v for r, v in self.host.items()})
+        return m
+
+
 class LocalBackend:
     def __init__(self, device: torch.device):
         self.device = device
+        # device bytes each stage's handed-off outputs may hold; 0 sends
+        # every partition by the host route
+        self.handoff_budget = handoff_budget_bytes(device)
 
-    def execute(self, stage, partitions) -> StageResult:
+    def execute(self, stage, partitions, consumer=False) -> StageResult:
         """Run one transform or aggregate stage over its input partitions
-        (a join stage runs through `run_plan`, which has its build side)."""
+        (a join stage runs through `run_plan`, which has its build side).
+        `consumer` is who takes its output (plan/physical.py
+        `consumer_kind`)."""
         if isinstance(stage, AggregateStage):
             from .aggexec import AggregateExecutor
 
-            return AggregateExecutor(self).execute(stage, partitions)
+            return AggregateExecutor(self).execute(stage, partitions,
+                                                   consumer)
         t0 = time.perf_counter()
+        snap = xferstats.snapshot()
+        handoff = Handoff(self.handoff_budget, consumer)
         metrics: dict[str, Any] = {k: 0 for k in _SUMMED}
         out_parts: list = []
         exceptions: list[ExceptionRecord] = []
@@ -89,7 +159,8 @@ class LocalBackend:
         def collect_one():
             part, outs, dispatch_s = window.popleft()
             outp, excs, m = self._collect_partition(stage, part, outs,
-                                                    dispatch_s)
+                                                    dispatch_s, handoff)
+            C.release_view(part)
             for k in _SUMMED:
                 metrics[k] += m.get(k, 0)
             exceptions.extend(excs)
@@ -106,6 +177,8 @@ class LocalBackend:
         metrics["resolve_tier"] = stage.resolve_plan().tier
         metrics["wall_s"] = time.perf_counter() - t0
         metrics["exception_rows"] = len(exceptions)
+        metrics.update(handoff.metrics())
+        metrics.update(xferstats.since(snap))
         return StageResult(out_parts, exceptions, metrics)
 
     # ------------------------------------------------------------------
@@ -129,8 +202,11 @@ class LocalBackend:
         return (part, outs, time.perf_counter() - t0)
 
     def _collect_partition(self, stage: TransformStage, part: C.Partition,
-                           outs, dispatch_s: float):
+                           outs, dispatch_s: float, handoff: Handoff):
         metrics: dict[str, Any] = {}
+        # a partition bound for a device consumer fetches its control
+        # arrays only; a fused fold's output never hands off
+        lazy = bool(handoff.consumer) and stage.fold_spec is None
         n = part.num_rows
         # rows needing the interpreter: input fallback slots + device errors
         fallback_idx: set[int] = set(part.fallback.keys())
@@ -141,7 +217,7 @@ class LocalBackend:
         bufs = stage.resolve_plan().new_buffers()
         t0 = time.perf_counter()
         if outs is not None:
-            host = self._fetch(outs, metrics)
+            host = self._fetch(outs, metrics, lazy)
             fold_on = True
             while True:
                 rowidx = host.pop("#rowidx", None)
@@ -159,10 +235,10 @@ class LocalBackend:
                     fold_on = False
                 else:
                     break
-                _, outs2, d2 = self._dispatch_partition(part, stage,
-                                                        fold=fold_on)
+                _, outs, d2 = self._dispatch_partition(part, stage,
+                                                       fold=fold_on)
                 dispatch_s += d2
-                host = self._fetch(outs2, metrics)
+                host = self._fetch(outs, metrics, lazy)
             if "#foldcnt" in host:
                 fold = ([host.pop(f"#fold{i}").item() for i in
                          range(len(stage.fold_spec.reducers))],
@@ -237,8 +313,13 @@ class LocalBackend:
         exceptions = [exc_by_row[i] for i in sorted(exc_by_row)]
         metrics["slow_path_s"] = time.perf_counter() - t0
         if stage.fold_spec is None:
+            on_dev = None
+            if lazy and outs is not None:
+                on_dev = {k: v for k, v in outs.items()
+                          if not k.startswith("#")}
             return self._merge(stage, part, compiled_ok, out_arrays,
-                               resolved, src_map), exceptions, metrics
+                               resolved, src_map, handoff, on_dev,
+                               metrics), exceptions, metrics
         # a fused fold returns a FoldPartial: its partials and the rows the
         # host folds after them, or, when the fold did not run on the
         # device, every output row of the partition, in order
@@ -290,7 +371,7 @@ class LocalBackend:
                 stage.general_refused.add(str_cols)
                 refused += k
                 continue
-            host = {kk: v.cpu().numpy() for kk, v in outs.items()}
+            host = {kk: xferstats.to_host(v) for kk, v in outs.items()}
             err = host.pop("#err")[:k]
             keep = host.pop("#keep")[:k]
             ok = err == 0
@@ -319,10 +400,13 @@ class LocalBackend:
         return exact
 
     @staticmethod
-    def _fetch(outs: dict, metrics: dict) -> dict:
-        """The stage outputs on the host; counts the bytes and the row
-        columns (outputs that are not '#' flags or partials) fetched."""
-        host = {k: v.cpu().numpy() for k, v in outs.items()}
+    def _fetch(outs: dict, metrics: dict, control_only: bool = False
+               ) -> dict:
+        """The stage outputs on the host (with `control_only`, only the '#'
+        flags and partials); counts the bytes and the row columns (outputs
+        that are not '#' flags or partials) fetched."""
+        host = {k: xferstats.to_host(v) for k, v in outs.items()
+                if not control_only or k.startswith("#")}
         metrics["fetch_bytes"] = metrics.get("fetch_bytes", 0) + sum(
             a.nbytes for a in host.values())
         metrics["fetched_row_columns"] = metrics.get(
@@ -333,46 +417,77 @@ class LocalBackend:
     def _merge(self, stage: TransformStage, part: C.Partition,
                compiled_ok: np.ndarray, out_arrays: dict,
                resolved: dict[int, Row],
-               src_map: Optional[np.ndarray] = None) -> C.Partition:
+               src_map: Optional[np.ndarray] = None,
+               handoff: Optional[Handoff] = None,
+               on_dev: Optional[dict] = None,
+               metrics: Optional[dict] = None) -> C.Partition:
         """Positional merge-in-order (reference: ResolveTask.cc:238-283).
 
         The output schema comes from the ACTUAL device arrays (never the
         sample-speculated logical schema); with no compiled rows the
-        resolved python rows are encoded from scratch."""
+        resolved python rows are encoded from scratch. `on_dev` holds the
+        data outputs still on the device (a partition bound for a device
+        consumer): when `handoff` routes the partition to the device its
+        view is gathered from them (the host leaves lazy), else they are
+        fetched now."""
         n = part.num_rows
         emit = compiled_ok.copy()
         res_idx = np.asarray(sorted(resolved), dtype=np.int64)
         emit[res_idx] = True
         emit_orig = np.nonzero(emit)[0]          # input rows that emit
         m = len(emit_orig)
-        if not out_arrays:
+        if not out_arrays and on_dev is None:
             rows = [resolved[i] for i in emit_orig.tolist()]
             values = [r.unwrap() for r in rows]
             schema = _schema_from_rows(rows) or _normalized_output_schema(
                 stage)
-            return C.build_partition(values, schema,
+            outp = C.build_partition(values, schema,
                                      start_index=part.start_index)
+            if handoff is not None:
+                handoff.offer_host(outp, self.device)
+            return outp
+        arrays = out_arrays if on_dev is None else on_dev
         n_full = n if src_map is None else \
-            int(next(iter(out_arrays.values())).shape[0])
+            int(next(iter(arrays.values())).shape[0])
         full = C.partition_from_result_arrays(
-            out_arrays, n_full, columns=runtime_output_columns(stage),
+            arrays, n_full, columns=runtime_output_columns(stage),
             start_index=part.start_index)
         from_device = compiled_ok[emit_orig]
         comp_out = np.nonzero(from_device)[0]
         comp_src = emit_orig[comp_out]
         if src_map is not None and comp_src.size:
             comp_src = src_map[comp_src]
-        outp = C.gather_partition(full, comp_out, comp_src, m)
-        multi = len(outp.schema.columns) > 1
+        multi = len(full.schema.columns) > 1
         ks = np.nonzero(~from_device)[0]
         values = [tuple(r.values) if multi else r.unwrap()
                   for r in (resolved[int(i)] for i in emit_orig[ks])]
-        boxed = _fold_rows(outp, ks, values)
+        view = None
+        if handoff is not None and handoff.route(
+                C.view_nbytes(full.leaves, m)):
+            view = C.gather_view(
+                full.leaves, m, self.device,
+                xferstats.to_device(comp_out, self.device),
+                xferstats.to_device(comp_src, self.device))
+            outp = C.Partition(schema=full.schema, num_rows=m,
+                               start_index=part.start_index)
+            C.hand_off(outp, view)
+            boxed = _fold_rows_view(view, outp.schema, ks, values)
+        else:
+            if on_dev is not None:
+                full = C.partition_from_result_arrays(
+                    self._fetch(on_dev, metrics), n_full,
+                    columns=runtime_output_columns(stage),
+                    start_index=part.start_index)
+            outp = C.gather_partition(full, comp_out, comp_src, m)
+            boxed = _fold_rows(outp, ks, values)
         if boxed.any():
             outp.normal_mask = np.ones(m, dtype=np.bool_)
             outp.normal_mask[ks[boxed]] = False
             outp.fallback = {int(ks[j]): values[j]
                              for j in np.nonzero(boxed)[0].tolist()}
+            if view is not None:
+                view.arrays["#rowvalid"][
+                    xferstats.to_device(ks[boxed], self.device)] = False
         return outp
 
 
@@ -383,17 +498,20 @@ def run_plan(context, sink: L.LogicalOperator) -> tuple[list, list]:
     build side's plan, whose exceptions come before the join's own."""
     exceptions: list = []
     parts = None
-    for stage in plan_stages(sink):
+    stages = plan_stages(sink)
+    for si, stage in enumerate(stages):
         if parts is None:
             parts = source_partitions(context, stage.source)
+        consumer = consumer_kind(stages, si)
         if isinstance(stage, JoinStage):
             from .joinexec import JoinExecutor
 
             build, build_excs = run_plan(context, stage.op.right)
             exceptions.extend(build_excs)
-            res = JoinExecutor(context.backend).execute(stage, parts, build)
+            res = JoinExecutor(context.backend).execute(stage, parts, build,
+                                                        consumer)
         else:
-            res = context.backend.execute(stage, parts)
+            res = context.backend.execute(stage, parts, consumer)
         context.metrics.record_stage(res.metrics)
         exceptions.extend(res.exceptions)
         parts = res.partitions
@@ -499,30 +617,68 @@ def _general_groups(stage: TransformStage, part: C.Partition,
     return {k: np.asarray(v, dtype=np.int64) for k, v in groups.items()}
 
 
+def _fold_plan(schema: T.RowType, widths: dict, values: list):
+    """Resolved Python rows `values` encoded as a partition of `schema`
+    (whose str leaves have the widths `widths`): (that partition, the mask
+    of the rows that stay boxed: they do not conform to the schema, or a
+    string is wider than its column)."""
+    n = len(values)
+    boxed = np.zeros(n, dtype=np.bool_)
+    if len(schema.columns) == 1:
+        # a 1-tuple that is not the column's value must not unwrap
+        t = schema.types[0]
+        for j, v in enumerate(values):
+            if isinstance(v, tuple) and len(v) == 1 and \
+                    not T.python_value_conforms(v, t):
+                boxed[j] = True
+    sub = C.build_partition(values, schema)
+    if sub.normal_mask is not None:
+        boxed |= ~sub.normal_mask
+    for p, src in sub.leaves.items():
+        if isinstance(src, C.StrLeaf):
+            boxed |= src.lengths > widths[p]
+    return sub, boxed
+
+
+def _fold_rows_view(view: C.DeviceView, schema: T.RowType, ks: np.ndarray,
+                    values: list) -> np.ndarray:
+    """`_fold_rows` into a device view: only the resolved rows' leaf
+    values are copied to the device, scattered into slots `ks`; returns
+    the mask of the rows that stay boxed."""
+    if not values:
+        return np.zeros(0, dtype=np.bool_)
+    sub, boxed = _fold_plan(schema, view.widths, values)
+    j = np.nonzero(~boxed)[0]
+    if not len(j):
+        return boxed
+    a = view.arrays
+    dev = a["#rowvalid"].device
+    pos = xferstats.to_device(ks[j], dev)
+    for p, src in sub.leaves.items():
+        if isinstance(src, C.StrLeaf):
+            w = min(src.width, view.widths[p])
+            a[p + "#bytes"][pos] = 0
+            a[p + "#bytes"][pos, :w] = xferstats.to_device(
+                src.bytes[j, :w], dev)
+            a[p + "#len"][pos] = xferstats.to_device(src.lengths[j], dev)
+        elif isinstance(src, C.NumericLeaf):
+            a[p][pos] = xferstats.to_device(src.data[j], dev)
+        if getattr(src, "valid", None) is not None:
+            a[p + "#valid"][pos] = xferstats.to_device(src.valid[j], dev)
+    return boxed
+
+
 def _fold_rows(outp: C.Partition, ks: np.ndarray,
                values: list) -> np.ndarray:
     """Write resolved Python rows `values` into the partition's columnar
     slots `ks`, all at once (encoded as a partition of the same schema,
     whose leaves are scattered in); returns the mask of the rows that stay
-    boxed (they do not conform to the schema, or a string is wider than
-    its column)."""
-    n = len(values)
-    boxed = np.zeros(n, dtype=np.bool_)
-    if not n:
-        return boxed
-    if len(outp.schema.columns) == 1:
-        # a 1-tuple that is not the column's value must not unwrap
-        t = outp.schema.types[0]
-        for j, v in enumerate(values):
-            if isinstance(v, tuple) and len(v) == 1 and \
-                    not T.python_value_conforms(v, t):
-                boxed[j] = True
-    sub = C.build_partition(values, outp.schema)
-    if sub.normal_mask is not None:
-        boxed |= ~sub.normal_mask
-    for p, src in sub.leaves.items():
-        if isinstance(src, C.StrLeaf):
-            boxed |= src.lengths > outp.leaves[p].bytes.shape[1]
+    boxed (`_fold_plan`)."""
+    if not values:
+        return np.zeros(0, dtype=np.bool_)
+    sub, boxed = _fold_plan(outp.schema, {
+        p: lf.width for p, lf in outp.leaves.items()
+        if isinstance(lf, C.StrLeaf)}, values)
     j = np.nonzero(~boxed)[0]
     pos = ks[j]
     for p, src in sub.leaves.items():

@@ -694,6 +694,21 @@ def plan_stages(sink: L.LogicalOperator) -> list:
     return stages
 
 
+def consumer_kind(stages: list, si: int):
+    """Who takes stage `si`'s output on the device (the reference's
+    `consumer_kind`): "stage", "join" or "agg", or False when the stage is
+    the last or the next one runs on the interpreter (its emitter already
+    refused it). exec/local.py `run_plan` passes it to each stage."""
+    nxt = stages[si + 1] if si + 1 < len(stages) else None
+    if isinstance(nxt, AggregateStage):
+        return "agg"
+    if isinstance(nxt, JoinStage):
+        return "join"
+    if isinstance(nxt, TransformStage) and not nxt.not_compilable:
+        return "stage"
+    return False
+
+
 def _apply_projection(stage: TransformStage, output_required=None) -> None:
     """Read only the CSV columns the stage needs (counterpart of the
     reference's `_apply_projection`, plan/physical.py:1116): the source

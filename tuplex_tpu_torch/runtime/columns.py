@@ -19,6 +19,14 @@ Host leaves are numpy; `stage_partition` copies them into torch tensors on
 the run's device. Flat schemas encode and decode through the native module
 (`tuplex_tpu_torch.native`) when it is available, else through the Python
 loops here, with the same rows and the same fallback rows.
+
+The device handoff between stages: a partition that a stage hands to the
+next one on the device carries a `DeviceView` (`Partition.device`), the
+arrays `stage_partition` would stage from its leaves, already on the
+device, and its host leaves are `LazyLeaves`, each fetched from the view
+only when something reads it. `stage_partition` and `stage_rows` take
+their arrays from the view, `decode_rows` and `decode_key_tuples` gather
+their rows from it on the device and fetch only those.
 """
 
 from __future__ import annotations
@@ -31,7 +39,9 @@ import torch
 
 from .. import native
 from ..core import typesys as T
+from ..core.errors import TuplexException
 from ..core.row import Row
+from .xferstats import COUNTS, to_device, to_host
 
 LEAF_NUMERIC = {T.BOOL: np.bool_, T.I64: np.int64, T.F64: np.float64}
 
@@ -188,6 +198,10 @@ class Partition:
     normal_mask: Optional[np.ndarray] = None      # [N] bool; None => all normal
     fallback: dict[int, Any] = field(default_factory=dict)
     start_index: int = 0                          # global row offset of row 0
+    # the partition's staged arrays on the device, when a stage handed it
+    # to its consumer there
+    device: Optional["DeviceView"] = field(default=None, compare=False,
+                                           repr=False)
 
     @property
     def user_columns(self):
@@ -399,13 +413,17 @@ def _leaf_keys(path: str, leaf):
 
 def stage_partition(part: Partition, device: torch.device) -> DeviceBatch:
     """Pad the partition's leaves to bucket shapes and copy them to
-    `device`."""
+    `device`; a partition with a device view gets the view's arrays (in a
+    dict of its own), which are those same arrays."""
+    view = part.device
+    if view is not None:
+        return DeviceBatch(arrays=dict(view.arrays), n=view.n, b=view.b)
     n = part.num_rows
     b = bucket_size(n)
     arrays: dict[str, torch.Tensor] = {}
 
     def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return to_device(a, device)
 
     for path, leaf in part.leaves.items():
         ks = _leaf_keys(path, leaf)
@@ -430,11 +448,252 @@ def stage_rows(part: Partition, idx: np.ndarray,
                device: torch.device) -> DeviceBatch:
     """Rows `idx` of a partition (none of them boxed) staged on `device`
     as a partition of their own, in that order: the general-case tier's
-    input."""
+    input. From a device view they are gathered on the device."""
     k = len(idx)
-    return stage_partition(
-        gather_partition(part, np.arange(k, dtype=np.int64),
-                         np.asarray(idx, dtype=np.int64), k), device)
+    idx = np.asarray(idx, dtype=np.int64)
+    view = part.device
+    if view is None:
+        return stage_partition(
+            gather_partition(part, np.arange(k, dtype=np.int64), idx, k),
+            device)
+    b = bucket_size(k)
+    at = to_device(idx, view.arrays["#rowvalid"].device)
+    arrays = {key: _pad_rows(a[at], b) for key, a in view.arrays.items()
+              if key != "#rowvalid"}
+    rowvalid = torch.zeros(b, dtype=torch.bool, device=at.device)
+    rowvalid[:k] = True
+    arrays["#rowvalid"] = rowvalid
+    return DeviceBatch(arrays=arrays, n=k, b=b)
+
+
+def _pad_rows(a: torch.Tensor, b: int) -> torch.Tensor:
+    """`a` with zero rows appended up to `b` rows."""
+    out = a.new_zeros((b,) + tuple(a.shape[1:]))
+    out[:a.shape[0]] = a
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the device handoff: views and lazy leaves
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DeviceView:
+    """A partition's columns on the device, as `stage_partition` would
+    stage them from its leaves: the same keys, shapes and dtypes (rows
+    padded to `bucket_size(n)`, a str leaf's bytes to the bucket of its
+    width), `#rowvalid` False at boxed rows and in the padding, and zero
+    padding. `paths` are the partition's leaf paths (a null leaf has no
+    array), `widths` each str leaf's width before the bucket."""
+
+    arrays: dict[str, torch.Tensor]
+    n: int
+    b: int
+    paths: tuple
+    widths: dict[str, int]
+
+
+def view_leaf(view: DeviceView, path: str) -> Leaf:
+    """The leaf at `path` as tensors on the device: views into the
+    view's arrays, `n` rows, a str leaf at its own width."""
+    a, n = view.arrays, view.n
+    valid = a.get(path + "#valid")
+    valid = None if valid is None else valid[:n]
+    if path + "#bytes" in a:
+        return StrLeaf(a[path + "#bytes"][:n, :view.widths[path]],
+                       a[path + "#len"][:n], valid)
+    if path in a:
+        return NumericLeaf(a[path][:n], valid)
+    return NullLeaf(n)
+
+
+def source_leaves(part: Partition) -> dict:
+    """The partition's leaves where they are: as tensors on the device
+    when it has a view (fetching nothing), else its host leaves."""
+    view = part.device
+    if view is None:
+        return part.leaves
+    return {p: view_leaf(view, p) for p in view.paths}
+
+
+def _take(leaf: Leaf, at: torch.Tensor) -> Leaf:
+    """A leaf of tensors at rows `at`, on its device."""
+    if isinstance(leaf, NumericLeaf):
+        return NumericLeaf(leaf.data[at],
+                           None if leaf.valid is None else leaf.valid[at])
+    if isinstance(leaf, StrLeaf):
+        return StrLeaf(leaf.bytes[at], leaf.lengths[at],
+                       None if leaf.valid is None else leaf.valid[at])
+    return NullLeaf(int(at.shape[0]))
+
+
+def leaf_to_host(leaf: Leaf, copy: bool = False) -> Leaf:
+    """A leaf of tensors fetched to numpy (counted); `copy`: the arrays
+    never share memory with the tensors."""
+    def get(t):
+        return None if t is None else to_host(t, copy)
+
+    if isinstance(leaf, NumericLeaf):
+        return NumericLeaf(get(leaf.data), get(leaf.valid))
+    if isinstance(leaf, StrLeaf):
+        return StrLeaf(get(leaf.bytes), get(leaf.lengths), get(leaf.valid))
+    return leaf
+
+
+def view_nbytes(leaves: dict, m: int) -> Optional[int]:
+    """Device bytes of the view of an m-row partition with these leaves
+    (numpy or tensors); None when a leaf has no device layout."""
+    b = bucket_size(m)
+    total = b                                   # '#rowvalid'
+    for leaf in leaves.values():
+        if isinstance(leaf, ObjectLeaf):
+            return None
+        if isinstance(leaf, NumericLeaf):
+            total += b * leaf.data.dtype.itemsize
+        elif isinstance(leaf, StrLeaf):
+            total += b * (bucket_size(max(leaf.width, 1)) + 4)
+        if getattr(leaf, "valid", None) is not None:
+            total += b
+    return total
+
+
+def gather_view(leaves: dict, m: int, device,
+                out_pos: Optional[torch.Tensor] = None,
+                src_idx: Optional[torch.Tensor] = None) -> DeviceView:
+    """The view of an m-row partition with these leaves (NullLeaf, or
+    numeric or str leaves of tensors on `device`): its rows are the
+    leaves' m rows, or, with `out_pos` and `src_idx`, its rows `out_pos`
+    are the leaves' rows `src_idx` and its other rows are zero. The
+    padding is zero and, unlike the m rows, not `#rowvalid`."""
+    b = bucket_size(m)
+    arrays: dict[str, torch.Tensor] = {}
+    widths: dict[str, int] = {}
+
+    def put(key, a, tail=()):
+        out = torch.zeros((b,) + tail, dtype=a.dtype, device=device)
+        dst = out[:, :a.shape[1]] if tail else out
+        if out_pos is None:
+            dst[:m] = a
+        elif out_pos.numel():
+            dst[out_pos] = a[src_idx]
+        arrays[key] = out
+
+    for path, leaf in leaves.items():
+        if isinstance(leaf, NumericLeaf):
+            put(path, leaf.data)
+        elif isinstance(leaf, StrLeaf):
+            widths[path] = leaf.width
+            put(path + "#bytes", leaf.bytes,
+                (bucket_size(max(leaf.width, 1)),))
+            put(path + "#len", leaf.lengths)
+        if getattr(leaf, "valid", None) is not None:
+            put(path + "#valid", leaf.valid)
+    rowvalid = torch.zeros(b, dtype=torch.bool, device=device)
+    rowvalid[:m] = True
+    arrays["#rowvalid"] = rowvalid
+    return DeviceView(arrays=arrays, n=m, b=b, paths=tuple(leaves),
+                      widths=widths)
+
+
+def hand_off(part: Partition, view: DeviceView) -> None:
+    """Give the partition its view, and host leaves fetched from it one
+    at a time (`LazyLeaves`)."""
+    part.device = view
+    part.leaves = LazyLeaves(view)
+
+
+def attach_staged_view(part: Partition, device: torch.device) -> None:
+    """Give a partition built on the host (every leaf with a device layout)
+    a view: its staging, copied now. Its host leaves stay."""
+    batch = stage_partition(part, device)
+    part.device = DeviceView(
+        arrays=batch.arrays, n=batch.n, b=batch.b, paths=tuple(part.leaves),
+        widths={p: lf.width for p, lf in part.leaves.items()
+                if isinstance(lf, StrLeaf)})
+
+
+def release_view(part) -> None:
+    """Drop a partition's view once its consumer has finished it; a lazy
+    leaf not fetched by then can no longer be."""
+    if getattr(part, "device", None) is None:
+        return
+    part.device = None
+    if isinstance(part.leaves, LazyLeaves):
+        part.leaves.release()
+
+
+class LazyLeaves(dict):
+    """The host leaves of a partition with a device view (the reference
+    package's `LazyLeaves`). Key-set operations (iteration, membership,
+    len) fetch nothing; reading a value fetches that leaf alone from the
+    view (a copy, never sharing memory with it), counted in
+    `forced_leaves`. items() and values() fetch every leaf."""
+
+    def __init__(self, view: DeviceView):
+        super().__init__()
+        self._keys = view.paths
+        self._view: Optional[DeviceView] = view
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def keys(self):
+        return tuple(self._keys)
+
+    def __len__(self):
+        return len(self._keys)
+
+    def __contains__(self, k):
+        return k in self._keys
+
+    def __bool__(self):
+        return bool(self._keys)
+
+    def _load(self, k):
+        if not dict.__contains__(self, k):
+            if self._view is None:
+                raise TuplexException(
+                    f"leaf {k!r}: the partition's device view was released "
+                    "before the leaf was fetched")
+            COUNTS["forced_leaves"] += 1
+            dict.__setitem__(self, k,
+                             leaf_to_host(view_leaf(self._view, k), True))
+            if all(dict.__contains__(self, k2) for k2 in self._keys):
+                self._view = None
+        return dict.__getitem__(self, k)
+
+    def __getitem__(self, k):
+        if k not in self._keys:
+            raise KeyError(k)
+        return self._load(k)
+
+    def get(self, k, default=None):
+        if k not in self._keys:
+            return default
+        return self._load(k)
+
+    def items(self):
+        return [(k, self._load(k)) for k in self._keys]
+
+    def values(self):
+        return [self._load(k) for k in self._keys]
+
+    def release(self) -> None:
+        self._view = None
+
+    def copy(self):
+        return dict(self.items())
+
+    def __eq__(self, other):
+        if isinstance(other, dict):
+            return dict(self.items()) == other
+        return NotImplemented
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return NotImplemented if eq is NotImplemented else not eq
+
+    __hash__ = None
 
 
 # ---------------------------------------------------------------------------
@@ -456,13 +715,14 @@ def type_from_result_arrays(arrays: dict, path: str) -> Optional[T.Type]:
     if (path + "#unit") in arrays:
         return T.option(T.EMPTYTUPLE) if opt else T.EMPTYTUPLE
     if path in arrays:
-        dt = np.asarray(arrays[path]).dtype
-        if dt == np.bool_:
-            base = T.BOOL
-        elif np.issubdtype(dt, np.integer):
-            base = T.I64
+        a = arrays[path]
+        if isinstance(a, torch.Tensor):
+            base = T.BOOL if a.dtype == torch.bool else \
+                T.F64 if a.is_floating_point() else T.I64
         else:
-            base = T.F64
+            dt = np.asarray(a).dtype
+            base = T.BOOL if dt == np.bool_ else T.I64 \
+                if np.issubdtype(dt, np.integer) else T.F64
         return T.option(base) if opt else base
     elts = []
     i = 0
@@ -484,7 +744,9 @@ def partition_from_result_arrays(arrays: dict[str, np.ndarray], n: int,
                                  columns: Optional[Sequence[str]] = None,
                                  start_index: int = 0) -> Partition:
     """Build a Partition directly from stage-output arrays, deriving the
-    schema from the arrays themselves."""
+    schema from the arrays themselves. Given tensors, its leaves are
+    tensors on their device (views where the dtype is already the
+    leaf's)."""
     col_types = []
     ci = 0
     while True:
@@ -506,31 +768,51 @@ def partition_from_result_arrays(arrays: dict[str, np.ndarray], n: int,
                      start_index=start_index)
 
 
+_TORCH_DTYPES = {np.dtype(np.bool_): torch.bool,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int32): torch.int32}
+
+
+def _as(a, dtype):
+    """numpy's asarray(a, dtype), for a tensor too (on its device)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(_TORCH_DTYPES[np.dtype(dtype)])
+    return np.asarray(a, dtype=dtype)
+
+
+def _bools(like, n: int, value: bool):
+    """n bools of `value`, a tensor on `like`'s device if it is one."""
+    if isinstance(like, torch.Tensor):
+        return torch.full((n,), value, dtype=torch.bool, device=like.device)
+    return np.full(n, value, dtype=np.bool_)
+
+
 def leaf_from_result_arrays(arrays: dict, path: str, lt: T.Type,
                             n: int) -> Leaf:
     base = lt.without_option() if lt.is_optional() else lt
     opt = lt.is_optional()
     if path.endswith("#opt"):
-        return NumericLeaf(np.asarray(arrays[path][:n], dtype=np.bool_))
+        return NumericLeaf(_as(arrays[path][:n], np.bool_))
     valid = arrays.get(path + "#valid")
     if valid is None and opt and (path + "#opt") in arrays:
         valid = arrays[path + "#opt"]
-    valid = None if valid is None else np.asarray(valid[:n], dtype=np.bool_)
+    valid = None if valid is None else _as(valid[:n], np.bool_)
     if base is T.STR:
-        return StrLeaf(
-            np.asarray(arrays[path + "#bytes"][:n], dtype=np.uint8),
-            np.asarray(arrays[path + "#len"][:n], dtype=np.int32),
-            valid)
+        return StrLeaf(_as(arrays[path + "#bytes"][:n], np.uint8),
+                       _as(arrays[path + "#len"][:n], np.int32), valid)
     if base is T.NULL:
         return NullLeaf(n)
     if base is T.EMPTYTUPLE:
         if opt:
+            like = next(a for k, a in arrays.items()
+                        if k == path or k.startswith(path + "#"))
             return NumericLeaf(
-                np.zeros(n, dtype=np.bool_),
-                valid if valid is not None else np.ones(n, dtype=np.bool_))
+                _bools(like, n, False),
+                valid if valid is not None else _bools(like, n, True))
         return NullLeaf(n)
-    return NumericLeaf(
-        np.asarray(arrays[path][:n], dtype=LEAF_NUMERIC[base]), valid)
+    return NumericLeaf(_as(arrays[path][:n], LEAF_NUMERIC[base]), valid)
 
 
 def gather_partition(part: Partition, out_positions: np.ndarray,
@@ -623,9 +905,12 @@ def key_signature_matrix(part: Partition, cis: Sequence[int],
     `device` (the CPU by default), by the rules of `canonical_key_bytes`;
     the reference package's `key_signature_matrix`. None when a leaf is
     not signature-comparable (boxed objects) or a float key is NaN."""
+    device = torch.device("cpu") if device is None else device
+
     def put(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(device)
+        if a is None or isinstance(a, torch.Tensor):
+            return a if a is None else a.to(device)
+        return to_device(a, device)
 
     pieces: list = []
     for ci in cis:
@@ -781,20 +1066,37 @@ def partition_to_pylist(part: Partition) -> list:
     return out
 
 
+def rows_on_host(part: Partition, idx: np.ndarray,
+                 paths: Optional[Sequence[str]] = None) -> dict:
+    """{path: host leaf} of the rows `idx` of the leaves at `paths` (every
+    leaf by default). From a device view the rows are gathered on the
+    device and only they are fetched."""
+    paths = tuple(part.leaves) if paths is None else paths
+    m = len(idx)
+    view = part.device
+    if view is None:
+        sub = Partition(schema=part.schema, num_rows=part.num_rows,
+                        leaves={p: part.leaves[p] for p in paths})
+        return gather_partition(sub, np.arange(m, dtype=np.int64), idx,
+                                m).leaves
+    at = to_device(idx, view.arrays["#rowvalid"].device)
+    return {p: leaf_to_host(_take(view_leaf(view, p), at)) for p in paths}
+
+
 def decode_key_tuples(part: Partition, indices, kidx) -> list[tuple]:
     """Key tuples (the values of columns `kidx`) of the given normal rows,
-    decoding only the key columns' leaves."""
+    decoding only the key columns' leaves at those rows."""
     types = part.schema.types
-    leaves: dict[str, Leaf] = {}
-    for new_ci, ci in enumerate(kidx):
-        for path, _ in flatten_type(types[ci], str(ci)):
-            leaves[str(new_ci) + path[len(str(ci)):]] = part.leaves[path]
+    idx = np.asarray(list(indices), dtype=np.int64)
+    paths = {path: str(new_ci) + path[len(str(ci)):]
+             for new_ci, ci in enumerate(kidx)
+             for path, _ in flatten_type(types[ci], str(ci))}
+    rows = rows_on_host(part, idx, tuple(paths))
     sub = Partition(schema=T.row_of([f"_{j}" for j in range(len(kidx))],
                                     [types[ci] for ci in kidx]),
-                    num_rows=part.num_rows, leaves=leaves)
-    idx = np.asarray(list(indices), dtype=np.int64)
-    vals = partition_to_pylist(gather_partition(
-        sub, np.arange(len(idx), dtype=np.int64), idx, len(idx)))
+                    num_rows=len(idx),
+                    leaves={new: rows[p] for p, new in paths.items()})
+    vals = partition_to_pylist(sub)
     return [(v,) for v in vals] if len(kidx) == 1 else vals
 
 
@@ -807,7 +1109,8 @@ def decode_rows(part: Partition, indices) -> list[Row]:
         return []
     cols = part.user_columns
     single = len(part.schema.types) == 1
-    gp = gather_partition(part, np.arange(m, dtype=np.int64), idx, m)
+    gp = Partition(schema=part.schema, num_rows=m,
+                   leaves=rows_on_host(part, idx))
     vals = partition_to_pylist(gp)
     fb = part.fallback
     rows: list[Row] = []

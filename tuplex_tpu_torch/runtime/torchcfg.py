@@ -10,6 +10,9 @@ float32 on the card.
 Entry points run on CUDA unless the caller asks for the CPU
 (`Context(device="cpu")`); with no device asked for and no CUDA present
 they raise instead of falling back.
+
+`handoff_budget_bytes` is the one limit on the device handoff between
+stages (exec/local.py `Handoff`).
 """
 
 from __future__ import annotations
@@ -46,3 +49,12 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise TuplexException(f"unsupported device {device!r}")
     return dev
+
+
+def handoff_budget_bytes(device: torch.device) -> int:
+    """Device bytes one stage's handed-off output partitions may hold
+    (counterpart of the reference's `device_handoff_budget_bytes`): a
+    quarter of the card's memory, and 1 GiB on the CPU device."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 4
+    return 1 << 30
