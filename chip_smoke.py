@@ -5,9 +5,9 @@
 Phases, in order; any failure ends the run with a nonzero exit:
 
   1. the card's name and power limit;
-  2. build the kernels (csrc/nfa_scan.cu, csrc/join_probe.cu) with nvcc
-     and, at the same time, the native host module
-     (native/src/fasttransfer.cpp) with g++;
+  2. build the kernels (csrc/nfa_scan.cu, csrc/join_probe.cu,
+     csrc/seg_fold.cu) with nvcc and, at the same time, the native host
+     module (native/src/fasttransfer.cpp) with g++;
   3. the kernel against its plain torch version on the card: the pattern
      x string matrix of the reference package's NFA tests, seeded random
      byte matrices of 1,000,003 rows x 128 bytes, edge inputs (widths 75,
@@ -73,7 +73,21 @@ Phases, in order; any failure ends the run with a nonzero exit:
      (seed 5): a column empty through the sniffed sample, then filled;
      every filled row finished by the general-case tier on the card, none
      interpreted, the rows equal to the plain loop's;
- 12. every entry point of the native module against its Python path on
+ 12. the general fold (csrc/seg_fold.cu): the kernel against its plain
+     version (ops/segfold.py seg_fold_plain) on seeded batches of
+     1,000,000 rows in 1, 6, 2,352 and 250,000 segments, each through a
+     4-instruction and a longer program, every output equal bit for bit,
+     kernel and plain version timed; then three general folds over phase
+     7's lineitem file through Context() on the card, each equal to a
+     plain loop with `==` on its repr (floats bit for bit, groups in the
+     loop's order): G1 by (returnflag, linestatus), G2 by shipdate, G3 over
+     the whole file, each with the kernel launched, no row folded on the
+     host and no lazy leaf fetched whole, then once more with the general
+     fold off (every row on the interpreter, as before it), rows equal and
+     both times printed; the kernel re-checked and timed on the largest
+     input G2 gave it; G1-G3 on the 2,000-row dirty file
+     against the loops, exception counts included;
+ 13. every entry point of the native module against its Python path on
      small inputs. The run fails unless the main path (phases 4-7) called
      the native entry points it uses and every entry point was called.
 
@@ -103,6 +117,7 @@ no result.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
 import os
@@ -120,6 +135,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available")
 
 from tuplex_tpu_torch import Context, native              # noqa: E402
+from tuplex_tpu_torch.compiler.foldprog import lower_fold  # noqa: E402
 from tuplex_tpu_torch.compiler.pypipeline import (        # noqa: E402
     build_python_pipeline)
 from tuplex_tpu_torch.core import typesys as T            # noqa: E402
@@ -130,11 +146,15 @@ from tuplex_tpu_torch.models import (flights, logs,       # noqa: E402
                                      nyc311, tpch, widened, zillow)
 from tuplex_tpu_torch.ops import join as J                # noqa: E402
 from tuplex_tpu_torch.ops import join_cuda, nfa_cuda      # noqa: E402
+from tuplex_tpu_torch.ops import segfold as SF            # noqa: E402
+from tuplex_tpu_torch.ops import segfold_cuda             # noqa: E402
 from tuplex_tpu_torch.ops.nfa import compile_nfa          # noqa: E402
+from tuplex_tpu_torch.plan import aggregates as A         # noqa: E402
 from tuplex_tpu_torch.plan.physical import plan_stages    # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
 from tuplex_tpu_torch.runtime import xferstats            # noqa: E402
 from tuplex_tpu_torch.runtime.devprof import device_busy  # noqa: E402
+from tuplex_tpu_torch.utils.reflection import get_udf_source  # noqa: E402
 
 LOG_LINES = 1_891_715       # NASA-HTTP, July 1995: one month of requests
 ZILLOW_ROWS = 1_000_000     # cut from a full scrape for the time limit
@@ -151,6 +171,9 @@ Q19_SEED = 19
 WIDENED_ROWS = 1_000_000
 WIDENED_SEED = 5
 PROBES = 1_000_000          # probe rows of the kernel phase's batches
+FOLD_ROWS = 1_000_000       # rows of the general fold's seeded batches
+FOLD_SEGMENTS = (1, 6, 2_352, 250_000)   # whole file, Q1's keys, ship
+                                         # dates, keys of 4 rows
 AIRPORT_KEYS = 9_300        # about the rows of GlobalAirportDatabase.txt
 REL_TOL = 1e-9              # float sums: partials merged per partition
 NON_ASCII_EVERY = 100_000
@@ -662,8 +685,9 @@ def copy_split(name: str, make) -> None:
                   f"{s['d2h_bytes']} bytes")
 
 
-def tpch_phase(tmp: str, total_calls: dict) -> None:
-    """Q6 and Q1 on the card against the plain loops on the same file."""
+def tpch_phase(tmp: str, total_calls: dict) -> tuple[str, str]:
+    """Q6 and Q1 on the card against the plain loops on the same file.
+    Returns the lineitem file and the dirty file, which phase 12 reads."""
     path = os.path.join(tmp, "lineitem.csv")
     t0 = time.perf_counter()
     tpch.generate_csv(path, TPCH_ROWS, seed=TPCH_SEED)
@@ -736,7 +760,6 @@ def tpch_phase(tmp: str, total_calls: dict) -> None:
     if len(q1_bits) != 1:
         raise AssertionError("q1: the two runs differ")
     budget0_runs("q1", lambda c: tpch.q1(c.csv(path)), got, wall)
-    os.remove(path)
 
     dirty = os.path.join(tmp, "dirty.csv")
     tpch.generate_dirty_csv(dirty, 2000, seed=TPCH_SEED)
@@ -766,7 +789,7 @@ def tpch_phase(tmp: str, total_calls: dict) -> None:
     print(f"tpch dirty cells (2000 rows): q6 exceptions {excs}, q1 "
           f"exceptions {excs1}, rows equal to the python loop's; q6 "
           f"{tier_line(ctx6.metrics)}; q1 {tier_line(ctx1.metrics)}")
-    os.remove(dirty)
+    return path, dirty
 
 
 def nyc311_phase(tmp: str) -> None:
@@ -1086,6 +1109,204 @@ def q19_phase(tmp: str):
     return launches, inputs
 
 
+def fold_short(a, x):
+    """The seeded batches' short fold: 4 instructions."""
+    return a + x
+
+
+def fold_long(a, x):
+    """The seeded batches' long fold: a condition, min, float floor
+    division and an int leaf."""
+    if x[1]:
+        return (min(a[0] * 0.999 + x[0], a[0] // x[2]), a[1] + 1)
+    return a
+
+
+def fold_batch(rng, prog, nseg: int, dev):
+    """seg_fold's inputs for FOLD_ROWS seeded rows in `nseg` segments, on
+    the card: float terms (x[2] small ints as floats, zeros among them,
+    so the program's floor division raises), a bool term (x[1]); 0.02% of
+    each term's rows raise an exact class; in odd segments 0.002% carry an
+    internal code and 0.02% a None (both stop their segment), and 1% of
+    the segments have a limit row."""
+    n = FOLD_ROWS
+    codes = rng.integers(0, nseg, n)
+    odd = codes % 2 == 1
+    vals = np.zeros((len(prog.terms), n), dtype=np.int64)
+    metas = np.zeros((len(prog.terms), n), dtype=np.int32)
+    for t, term in enumerate(prog.terms):
+        src = ast.unparse(term.expr)
+        if src == "x[1]":
+            vals[t], tag = rng.random(n) < 0.7, SF.TAG_BOOL
+        else:
+            f = rng.integers(-3, 4, n).astype(np.float64) \
+                if src == "x[2]" else rng.uniform(-100.0, 100.0, n)
+            vals[t], tag = f.view(np.int64), SF.TAG_FLOAT
+        u = rng.random(n)
+        meta = np.full(n, tag << 8, dtype=np.int32)
+        meta[u < 2e-4] |= 2                                  # ValueError
+        meta[odd & (u >= 2e-4) & (u < 2.2e-4)] |= SF.INTERNAL_CLASS
+        meta[odd & (u >= 3e-4) & (u < 5e-4)] = SF.TAG_NONE << 8
+        metas[t] = meta
+    limits = np.full(nseg, n, dtype=np.int64)
+    few = (rng.random(nseg) < 0.01) & (nseg > 1)
+    limits[few] = rng.integers(0, n, int(few.sum()))
+    seeds = rng.uniform(-10.0, 10.0, (nseg, prog.n_leaves)).view(np.int64)
+    tags = np.full((nseg, prog.n_leaves), SF.TAG_FLOAT, dtype=np.int8)
+    if prog.n_leaves > 1:
+        seeds[:, 1] = rng.integers(0, 5, nseg)
+        tags[:, 1] = SF.TAG_INT
+    order, offsets = SF.segment_layout(
+        torch.from_numpy(codes).to(dev), nseg)
+    put = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (vals, metas, limits, seeds, tags)]
+    return put[0], put[1], order, offsets, put[2], put[3], put[4]
+
+
+def fold_kernel(prog, inputs, what: str, reps: int = 3) -> dict:
+    """seg_fold's kernel against its plain version on the same inputs on
+    the card (every output equal), and the times of both; the bound: each
+    folded row's terms (8-byte payload, 4-byte meta word) and its place in
+    `order` read once, the segment table read once, the statuses and the
+    segments' outputs written once, at the device memory rate."""
+    t0 = time.perf_counter()
+    want = SF.seg_fold_plain(prog, *inputs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    before = segfold_cuda.launches
+    got = segfold_cuda.seg_fold(prog, *inputs)
+    torch.cuda.synchronize()
+    if segfold_cuda.launches != before + 1:
+        raise AssertionError(f"seg_fold on {what}: no kernel launch")
+    fields = ("acc", "acc_tags", "first", "count", "stop", "status")
+    bad = [f for f in fields
+           if not torch.equal(getattr(got, f), getattr(want, f))]
+    if bad:
+        raise AssertionError(f"seg_fold kernel != plain on {what}: {bad}")
+    ms, host_ms = kernel_device_ms(
+        lambda: segfold_cuda.seg_fold(prog, *inputs), reps)
+    vals, _, order, _, _, seeds, _ = inputs
+    nterm, b = vals.shape
+    m = order.shape[0]
+    nseg, nleaf = seeds.shape
+    bytes_ = m * (12 * nterm + 8) + nseg * (16 + 9 * nleaf) + b + \
+        nseg * (24 + 9 * nleaf)
+    bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    st = got.status
+    print(f"seg_fold on {what}: {m} rows in {nseg} segments, "
+          f"{len(prog)}-instruction program, {nterm} terms: "
+          f"{int((st == SF.ST_FOLDED).sum())} folded, "
+          f"{int((st >= SF.ST_EXC).sum())} exceptions, "
+          f"{int((got.stop >= 0).sum())} segments stopped "
+          f"({int((st == SF.ST_HOST).sum())} rows for the host); kernel "
+          f"{ms:.4f} ms ({host_ms:.4f} ms of host time per wrapper call), "
+          f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+          f"({bytes_} bytes); kernel == plain")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def recording_folds(inputs: list):
+    """A context that records every input the aggregate stage hands the
+    general fold's kernel wrapper."""
+    kernel = segfold_cuda.seg_fold
+
+    @contextlib.contextmanager
+    def ctx():
+        def recording(prog, *args):
+            inputs.append((prog, args))
+            return kernel(prog, *args)
+
+        segfold_cuda.seg_fold = recording
+        try:
+            yield
+        finally:
+            segfold_cuda.seg_fold = kernel
+
+    return ctx()
+
+
+def fold_phase(path: str, dirty: str, dev) -> tuple[int, dict]:
+    """The general fold's kernel on seeded batches, then G1-G3 on the
+    card against the plain loops. Returns (kernel launches in G1-G3's runs
+    on the clean file, the kernel's numbers on G2's largest input)."""
+    rng = np.random.default_rng(11)
+    for fn, n_leaves, scalar in ((fold_short, 1, True),
+                                 (fold_long, 2, False)):
+        prog = lower_fold(get_udf_source(fn), n_leaves, scalar)
+        for nseg in FOLD_SEGMENTS:
+            fold_kernel(prog, fold_batch(rng, prog, nseg, dev),
+                        f"a seeded batch ({fn.__name__})")
+    rows, read_s = timed(lambda: tpch.read_lineitem_dicts(path))
+    print(f"general folds: read {len(rows)} lineitem rows as dicts for "
+          f"the loops in {read_s:.3f} s")
+    launches = 0
+    recorded: list = []
+    for job in ("g1", "g2", "g3"):
+        (want, excs), loop_s = timed(lambda: tpch.fold_python(rows, job))
+        ctx = Context()
+        segfold_cuda.launches = 0
+        with recording_folds(recorded if job == "g2" else []):
+            t0 = time.perf_counter()
+            ds = getattr(tpch, "fold_" + job)(ctx.csv(path))
+            got = ds.collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = segfold_cuda.launches
+        launches += n
+        m = ctx.metrics
+        agg = m.stages[-1]
+        forced = sum(st.get("forced_leaves", 0) for st in m.stages)
+        if repr(got) != repr(want) or ds.exception_counts() != excs:
+            raise AssertionError(f"{job}: {len(got)} rows != the loop's "
+                                 f"{len(want)}, or exceptions "
+                                 f"{ds.exception_counts()} != {excs}")
+        if n <= 0 or m.hostFoldedRows() or forced or m.interpreterRows():
+            raise AssertionError(f"{job}: {n} seg_fold launches, "
+                                 f"{m.hostFoldedRows()} rows folded on the "
+                                 f"host, {forced} lazy leaves fetched whole")
+        print(f"general fold {job}: {len(rows)} rows -> {len(got)} groups "
+              f"in {wall:.3f} s (python loop {loop_s:.3f} s), equal to the "
+              f"loop bit for bit; seg_fold launches {n}, aggregate stage "
+              f"{agg['wall_s']:.3f} s ({agg['device_rows']} rows on the "
+              f"card, {agg['scan_rows']} in segments, "
+              f"{agg['scan_stopped_segments']} stopped), rows folded on the "
+              f"host {m.hostFoldedRows()}, h2d {m.h2dBytes()} bytes, d2h "
+              f"{m.d2hBytes()} bytes, lazy leaves fetched whole {forced}")
+        # the same job on the path this one replaced: every row decoded
+        # and folded on the interpreter
+        try_build = A.ScanFold.try_build
+        A.ScanFold.try_build = classmethod(lambda cls, op: None)
+        try:
+            ctx = Context()
+            t0 = time.perf_counter()
+            interp = getattr(tpch, "fold_" + job)(ctx.csv(path)).collect()
+            interp_s = time.perf_counter() - t0
+        finally:
+            A.ScanFold.try_build = try_build
+        if repr(interp) != repr(want) or \
+                ctx.metrics.hostFoldedRows() != len(rows):
+            raise AssertionError(f"{job} on the interpreter differs")
+        print(f"general fold {job} on the interpreter (the general fold "
+              f"off): {interp_s:.3f} s, rows equal")
+    drows = tpch.read_lineitem_dicts(dirty)
+    for job in ("g1", "g2", "g3"):
+        want, excs = tpch.fold_python(drows, job)
+        ctx = Context()
+        ds = getattr(tpch, "fold_" + job)(ctx.csv(dirty))
+        got = ds.collect()
+        if repr(got) != repr(want) or ds.exception_counts() != excs:
+            raise AssertionError(f"dirty {job}: {got} != the loop's {want}, "
+                                 f"or exceptions {ds.exception_counts()} != "
+                                 f"{excs}")
+        agg = ctx.metrics.stages[-1]
+        print(f"general fold {job} on the dirty file (2000 rows): equal to "
+              f"the loop, exceptions {excs}; {agg['device_rows']} rows on "
+              f"the card, {agg['scan_stopped_segments']} segments stopped, "
+              f"{agg['host_folded_rows']} rows folded on the host")
+    prog, args = max(recorded, key=lambda pa: pa[1][2].shape[0])
+    nums = fold_kernel(prog, args, "G2's largest input", reps=10)
+    return launches, nums
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
 
@@ -1095,12 +1316,13 @@ def main() -> None:
 
     # 2 --------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:      # nvcc (twice) and g++ at once
-        libs = [pool.submit(k.build) for k in (nfa_cuda, join_cuda)]
+    kernels = (nfa_cuda, join_cuda, segfold_cuda)
+    with ThreadPoolExecutor(4) as pool:      # nvcc (3 times) and g++ at once
+        libs = [pool.submit(k.build) for k in kernels]
         mod_f = pool.submit(native.get)
         libs, mod = [f.result() for f in libs], mod_f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {libs}")
-    for k in (nfa_cuda, join_cuda):
+    for k in kernels:
         if k.LIBRARY.build_log:
             print(k.LIBRARY.build_log.strip())
     if mod is None:
@@ -1251,9 +1473,9 @@ def main() -> None:
     zillow_phase(tmp, total_calls)
 
     # 7 --------------------------------------------------------------
-    tpch_phase(tmp, total_calls)
+    tpch_tmp = tmp
+    lineitem, dirty = tpch_phase(tmp, total_calls)
     nyc311_phase(tmp)
-    os.rmdir(tmp)
 
     # 8 --------------------------------------------------------------
     max_probe_err = 0
@@ -1287,6 +1509,12 @@ def main() -> None:
     del probe_inputs, words, build
 
     # 12 -------------------------------------------------------------
+    fold_launches, fold_nums = fold_phase(lineitem, dirty, dev)
+    for f in (lineitem, dirty):
+        os.remove(f)
+    os.rmdir(tpch_tmp)
+
+    # 13 -------------------------------------------------------------
     zero_native_calls()
     native_check()
     for k, v in native.calls.items():
@@ -1308,7 +1536,12 @@ def main() -> None:
         "source": "tuplex_tpu_torch/csrc/join_probe.cu",
         "replaces": "tuplex_tpu/exec/joinexec.py:629",
         "launches": probe_launches, "max_abs_err": max_probe_err,
-        **probe_nums, "bound_by": "bytes"}]}))
+        **probe_nums, "bound_by": "bytes"}, {
+        "name": "seg_fold", "route": "cuda",
+        "source": "tuplex_tpu_torch/csrc/seg_fold.cu",
+        "replaces": "tuplex_tpu/plan/aggregates.py:449",
+        "launches": fold_launches, "max_abs_err": 0, **fold_nums,
+        "bound_by": "bytes", "library_ms": None}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -156,6 +156,9 @@ def test_empty_inputs():
 
 
 def test_unrecognized_fold_runs_on_the_interpreter():
+    """A fold recognize_fold declines runs as a general fold on the device
+    (tests/test_torch_scanfold.py); one whose accumulator is not a number
+    (here an Option) still folds on the interpreter."""
     rows = list(range(1, 300))
     ctx = _port()
     got = ctx.parallelize(rows).aggregate(
@@ -163,6 +166,18 @@ def test_unrecognized_fold_runs_on_the_interpreter():
     want = 1
     for x in rows:
         want = want * 3 % 1000003 + x
+    assert got == [want]
+    assert ctx.metrics.stages[-1]["host_folded_rows"] == 0
+    assert ctx.metrics.stages[-1]["device_rows"] == len(rows)
+    assert ctx.metrics.interpreterRows() == 0
+
+    want = None
+    for x in rows:
+        want = x if want is None else want * 3 % 1000003 + x
+    ctx = _port()
+    got = ctx.parallelize(rows).aggregate(
+        lambda a, b: a, lambda a, x: x if a is None else a * 3 % 1000003 + x,
+        None).collect()
     assert got == [want]
     assert ctx.metrics.stages[-1]["host_folded_rows"] == len(rows)
     assert ctx.metrics.stages[-1]["device_rows"] == 0

@@ -1,6 +1,7 @@
-"""tuplex_tpu_torch on the card: the CUDA NFA scan and the CUDA join probe
-against their plain torch versions, the string kernels and the aggregate
-reductions on CUDA against the same ops on the CPU, and the pipelines
+"""tuplex_tpu_torch on the card: the CUDA NFA scan, the CUDA join probe
+and the CUDA general fold against their plain versions, the string
+kernels and the aggregate reductions on CUDA against the same ops on the
+CPU, and the pipelines
 (smoke, log grep, Zillow Z1, TPC-H Q6, Q1 and Q19, NYC 311, flights)
 through Context() on CUDA.
 
@@ -10,11 +11,13 @@ imports neither jax nor tuplex_tpu, so it runs on a GPU host without them:
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Oracles: the plain versions (`NFARegex.match_bitmask`,
-`ops/join.py:lower_bound_plain`) on the same CUDA tensors, Python `re`, the CPU run of each string kernel (itself held
+`ops/join.py:lower_bound_plain`, `ops/segfold.py:seg_fold_plain`) on the
+same CUDA tensors, Python `re`, the CPU run of each string kernel (itself held
 against the reference package by tests/test_torch_strings.py), and a
 plain Python loop. Tolerance: exact.
 """
 
+import ast
 import re
 
 import numpy as np
@@ -26,7 +29,11 @@ from tuplex_tpu_torch.models import flights, logs, nyc311, tpch, zillow
 from tuplex_tpu_torch.ops import nfa as port_nfa
 from tuplex_tpu_torch.ops import fold as F
 from tuplex_tpu_torch.ops import join as J
-from tuplex_tpu_torch.ops import join_cuda, nfa_cuda
+from tuplex_tpu_torch.compiler.foldprog import FoldProgram, lower_fold
+from tuplex_tpu_torch.ops import join_cuda, nfa_cuda, segfold_cuda
+from tuplex_tpu_torch.ops import segfold as SF
+from tuplex_tpu_torch.plan import aggregates as A
+from tuplex_tpu_torch.utils.reflection import get_udf_source
 from tuplex_tpu_torch.ops import strings as S
 from tuplex_tpu_torch.runtime import columns as C
 
@@ -485,3 +492,203 @@ def test_join_layouts_and_odd_keys_on_cuda(case, cuda_device):
         assert stats["device_probed_rows"] == len(left)
         if case in ("tuple_payloads", "option_tuple", "unhashable"):
             assert join_cuda.launches > before
+
+
+# -- the general fold (csrc/seg_fold.cu) --------------------------------------
+
+def _segfold_short(a, x):
+    return a + x[0]
+
+
+def _segfold_ints(a, x):
+    return a * 3 % 1000003 + x[1] if x[2] else a - x[3]
+
+
+def _segfold_mixed(a, x):
+    return (min(a[0], x[0]), max(x[1], a[1]), a[2] + (x[0] < x[1]))
+
+
+def _segfold_builtins(a, x):
+    return -abs(a) // (x[3] or 1) + int(x[0] % 7.5) if a != x[1] \
+        else float(a) / 3 + bool(x[2])
+
+
+def _segfold_locals(a, x):
+    y = x[0] * 2
+    if a > 0 and y < 50:
+        s = a % 7
+    else:
+        s = a // (x[3] + 0.5)
+    return s + y
+
+
+_SEGFOLD_PROGRAMS = {"short": (_segfold_short, 0.0),
+                     "ints": (_segfold_ints, 1),
+                     "mixed": (_segfold_mixed, (0.0, 0, 0)),
+                     "builtins": (_segfold_builtins, 2),
+                     "locals": (_segfold_locals, 1)}
+
+
+def _segfold_inputs(prog, init, n, nseg, seed, dev):
+    """Seeded terms for programs over x[0] (floats with NaN, signed zeros
+    and infinities), x[1] (ints), x[2] (bools) and x[3] (small ints with
+    zeros); exact classes in some rows. What stops a segment (ints beyond
+    2**53 and near int64's ends, internal codes, Nones, a limit row) only
+    in odd segments, so that even ones fold to their end."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-1, nseg, n)     # -1: a row in no segment
+    odd = codes % 2 == 1
+    vals = np.zeros((len(prog.terms), n), dtype=np.int64)
+    metas = np.zeros((len(prog.terms), n), dtype=np.int32)
+    for t, term in enumerate(prog.terms):
+        src = ast.unparse(term.expr)
+        if src == "x[0]":
+            f = rng.uniform(-100.0, 100.0, n)
+            f[rng.random(n) < 0.01] = np.nan
+            f[rng.random(n) < 0.01] = -0.0
+            f[rng.random(n) < 0.005] = np.inf
+            vals[t], tag = f.view(np.int64), SF.TAG_FLOAT
+        elif src == "x[1]":
+            v = rng.integers(-1000, 1000, n)
+            big = odd & (rng.random(n) < 0.02)
+            v[big] = rng.integers(-(1 << 62), 1 << 62, int(big.sum())) * 2
+            vals[t], tag = v, SF.TAG_INT
+        elif src == "x[2]":
+            vals[t], tag = rng.random(n) < 0.5, SF.TAG_BOOL
+        else:
+            vals[t], tag = rng.integers(-3, 4, n), SF.TAG_INT
+        u = rng.random(n)
+        meta = np.full(n, tag << 8, dtype=np.int32)
+        meta[u < 0.002] |= 3                         # TypeError
+        meta[odd & (u >= 0.002) & (u < 0.0025)] |= SF.INTERNAL_CLASS
+        meta[odd & (u >= 0.003) & (u < 0.0035)] = SF.TAG_NONE << 8
+        metas[t] = meta
+    order, offsets = SF.segment_layout(torch.from_numpy(codes).to(dev), nseg)
+    limits = np.full(nseg, n, dtype=np.int64)
+    few = (rng.random(nseg) < 0.05) & (np.arange(nseg) % 2 == 1)
+    limits[few] = rng.integers(0, n, int(few.sum()))
+    seeds, tags = A.ScanFold(prog, prog.n_leaves,
+                             not isinstance(init, tuple)).encode_segments(
+        [init] * nseg)
+    put = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (vals, metas, limits, seeds, tags)]
+    return put[0], put[1], order, offsets, put[2], put[3], put[4]
+
+
+def _lowered(name):
+    """(the program of a fold of _SEGFOLD_PROGRAMS, its initial value)."""
+    fn, init = _SEGFOLD_PROGRAMS[name]
+    scalar = not isinstance(init, tuple)
+    return lower_fold(get_udf_source(fn), 1 if scalar else len(init),
+                      scalar), init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_SEGFOLD_PROGRAMS))
+@pytest.mark.parametrize("nseg", [1, 3, 1000])
+def test_seg_fold_kernel_matches_plain(name, nseg, cuda_device):
+    """Every output of the kernel equals its plain version's, bits and
+    tags included, over int overflow, int-float comparisons beyond 2**53,
+    NaN, infinities, division by zero, term codes, Nones and limits."""
+    prog, init = _lowered(name)
+    inputs = _segfold_inputs(prog, init, 20_000, nseg, nseg + len(name),
+                             cuda_device)
+    before = segfold_cuda.launches
+    got = SF.seg_fold(prog, *inputs)
+    want = SF.seg_fold_plain(prog, *inputs)
+    torch.cuda.synchronize()
+    assert segfold_cuda.launches == before + 1
+    for f in ("acc", "acc_tags", "first", "count", "stop", "status"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    st = want.status
+    assert (st == SF.ST_FOLDED).any() and (st >= SF.ST_EXC).any()
+    assert (want.stop >= 0).any() == (nseg > 1)
+
+
+@pytest.mark.cuda
+def test_seg_fold_kernel_stop_rule_and_codes(cuda_device):
+    """The CPU test's hand-built case on the card: an exact class is
+    recorded and skipped, an internal code and the limit stop a segment,
+    and every later row of it is the host's."""
+    code = torch.tensor([[SF.ACC, 0, 0, 0], [SF.TERM, 1, 0, 0],
+                         [SF.ADD, 2, 0, 1], [SF.OUT, 0, 2, 0]],
+                        dtype=torch.int32)
+    prog = FoldProgram(code, torch.zeros((0, 2), dtype=torch.int64), [], 1,
+                       "x")
+    vals = torch.arange(10, dtype=torch.int64)[None, :] * 10
+    metas = torch.full((1, 10), SF.TAG_INT << 8, dtype=torch.int32)
+    metas[0, 3] |= SF.ZERODIVISION
+    metas[0, 6] |= SF.INTERNAL_CLASS
+    codes = torch.tensor([0, 1, 0, 0, 1, 0, 1, 1, 0, -1])
+    order, offsets = SF.segment_layout(codes, 2)
+    args = [t.to(cuda_device) for t in (
+        vals, metas, order, offsets, torch.tensor([5, 10]),
+        torch.tensor([[1], [2]]),
+        torch.full((2, 1), SF.TAG_INT, dtype=torch.int8))]
+    res = SF.seg_fold(prog, *args)
+    assert res.acc.tolist() == [[21], [52]]
+    assert res.first.tolist() == [0, 1] and res.count.tolist() == [2, 2]
+    assert res.stop.tolist() == [5, 6]
+    assert res.status.tolist() == [1, 1, 1, SF.ST_EXC + SF.ZERODIVISION, 1,
+                                   2, 2, 2, 2, 0]
+
+
+@pytest.mark.cuda
+def test_seg_fold_wrapper_rejects_bad_inputs(cuda_device):
+    prog, init = _lowered("short")
+    inputs = list(_segfold_inputs(prog, init, 100, 2, 1, cuda_device))
+    with pytest.raises(ValueError):
+        segfold_cuda.seg_fold(prog, inputs[0].cpu(), *inputs[1:])
+    bad = list(inputs)
+    bad[1] = bad[1].to(torch.int64)
+    with pytest.raises(TypeError):
+        segfold_cuda.seg_fold(prog, *bad)
+
+
+@pytest.mark.cuda
+def test_decay_fold_equals_the_loops_bits_on_cuda(cuda_device):
+    """`a * 0.9 + x` over 10,000 floats: the kernel rounds the product and
+    the sum apart, as CPython does (no FMA), so the result has the loop's
+    bits; by key too, in the loop's group order."""
+    rng = np.random.default_rng(9)
+    vals = [float(v) for v in rng.uniform(-1e3, 1e3, 10_000)]
+    want = 0.0
+    for v in vals:
+        want = want * 0.9 + v
+    ctx = tuplex_tpu_torch.Context({"tuplex.partitionSize": "16KB"})
+    before = segfold_cuda.launches
+    got = ctx.parallelize(vals).aggregate(lambda a, b: a + b,
+                                          lambda a, x: a * 0.9 + x,
+                                          0.0).collect()
+    assert got[0].hex() == want.hex()
+    assert segfold_cuda.launches > before
+    m = ctx.metrics.stages[-1]
+    assert m["device_rows"] == len(vals) and m["host_folded_rows"] == 0
+    rows = [(int(k), v) for k, v in zip(rng.integers(0, 50, 10_000), vals)]
+    groups: dict = {}
+    for k, v in rows:
+        groups[k] = groups.get(k, 0.0) * 0.9 + v
+    got = tuplex_tpu_torch.Context().parallelize(
+        rows, columns=["k", "v"]).aggregateByKey(
+        lambda a, b: a + b, lambda a, x: a * 0.9 + x["v"], 0.0,
+        ["k"]).collect()
+    assert repr(got) == repr(list(groups.items()))
+
+
+@pytest.mark.cuda
+def test_lineitem_fold_jobs_on_cuda(tmp_path, cuda_device):
+    """G1-G3 of chip_smoke.py on small clean and dirty files on the card,
+    equal to the loops (exception counts too), through the kernel."""
+    for gen in (tpch.generate_csv, tpch.generate_dirty_csv):
+        path = str(tmp_path / f"{gen.__name__}.csv")
+        gen(path, 3000, seed=7)
+        rows = tpch.read_lineitem_dicts(path)
+        for job in ("g1", "g2", "g3"):
+            before = segfold_cuda.launches
+            ds = getattr(tpch, "fold_" + job)(tuplex_tpu_torch.Context()
+                                              .csv(path))
+            got = ds.collect()
+            want, excs = tpch.fold_python(rows, job)
+            assert repr(got) == repr(want)
+            assert ds.exception_counts() == excs
+            assert segfold_cuda.launches > before

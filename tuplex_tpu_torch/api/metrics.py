@@ -50,6 +50,23 @@ class Metrics:
         interpreterRows)."""
         return int(self._sum("host_folded_rows"))
 
+    def deviceRows(self) -> int:
+        """Rows the aggregate stages folded or deduplicated on the device
+        (a general fold's rows that raised there included)."""
+        return int(self._sum("device_rows"))
+
+    def scanRows(self) -> int:
+        """Rows the aggregate stages' general folds (plan/aggregates.py
+        ScanFold) put in their segments on the device, the rows past a
+        segment's stop included."""
+        return int(self._sum("scan_rows"))
+
+    def scanStoppedSegments(self) -> int:
+        """Segments of the general folds that stopped at a row the
+        interpreter had to fold: it folded that row and the segment's later
+        rows (counted in hostFoldedRows)."""
+        return int(self._sum("scan_stopped_segments"))
+
     def deviceErrorRows(self) -> int:
         """Rows the compiled path flagged with an error code."""
         return int(self._sum("device_error_rows"))

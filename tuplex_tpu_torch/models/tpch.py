@@ -311,3 +311,65 @@ def q1_python_counting(rows) -> tuple:
         except Exception as e:
             excs[type(e).__name__] = excs.get(type(e).__name__, 0) + 1
     return groups, excs
+
+
+# --- general folds over lineitem ----------------------------------------------
+# Aggregate UDFs that plan/aggregates.py `recognize_fold` declines (a
+# condition, a decay), so they run as general folds (csrc/seg_fold.cu):
+# by (returnflag, linestatus), 6 keys; by shipdate, 2,352 keys; and over
+# the whole file, one segment.
+
+def fold_g1(ds):
+    """Discounted revenue and row count of the rows discounted by 0.05 or
+    more, by (returnflag, linestatus)."""
+    return ds.aggregateByKey(
+        lambda a, b: (a[0] + b[0], a[1] + b[1]),
+        lambda a, x: (a[0] + x["l_extendedprice"] * (1 - x["l_discount"]),
+                      a[1] + 1) if x["l_discount"] >= 0.05 else a,
+        (0.0, 0), ["l_returnflag", "l_linestatus"])
+
+
+def fold_g2(ds):
+    """An exponentially decayed price per ship date."""
+    return ds.aggregateByKey(
+        lambda a, b: a + b,
+        lambda a, x: a * 0.9 + x["l_extendedprice"],
+        0.0, ["l_shipdate"])
+
+
+def fold_g3(ds):
+    """A decayed price over the rows shipped by the Q1 cutoff, over the
+    whole file."""
+    return ds.aggregate(
+        lambda a, b: a + b,
+        lambda a, x: a * 0.999 + x["l_extendedprice"]
+        if x["l_shipdate"] <= "1998-09-02" else a,
+        0.0)
+
+
+def fold_python(rows, job: str) -> tuple:
+    """A general fold job ('g1', 'g2' or 'g3') as a plain loop over
+    read_lineitem_dicts rows: (the rows `collect()` gives, exception
+    counts by class), a row that raises counted and skipped."""
+    groups, excs = {}, {}
+    for x in rows:
+        try:
+            if job == "g1":
+                k = (x["l_returnflag"], x["l_linestatus"])
+                a = groups.get(k, (0.0, 0))
+                groups[k] = (a[0] + x["l_extendedprice"] *
+                             (1 - x["l_discount"]), a[1] + 1) \
+                    if x["l_discount"] >= 0.05 else a
+            elif job == "g2":
+                k = (x["l_shipdate"],)
+                groups[k] = groups.get(k, 0.0) * 0.9 + x["l_extendedprice"]
+            else:
+                a = groups.get((), 0.0)
+                groups[()] = a * 0.999 + x["l_extendedprice"] \
+                    if x["l_shipdate"] <= "1998-09-02" else a
+        except Exception as e:
+            excs[type(e).__name__] = excs.get(type(e).__name__, 0) + 1
+    if job == "g3":
+        return [groups.get((), 0.0)], excs
+    return [k + (v if isinstance(v, tuple) else (v,))
+            for k, v in groups.items()], excs

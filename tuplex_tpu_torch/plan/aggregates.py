@@ -8,8 +8,10 @@ emits one, so it ends a stage and runs as an AggregateStage
 that partitions can fold in parallel; the same contract lets aggregate
 UDFs of the form `acc + f(row)`, `min(acc, f(row))` or `max(...)` (or a
 tuple of such terms) run as whole-column reductions on the device
-(`recognize_fold`). Any other aggregate UDF folds row by row on the
-interpreter, with the same result.
+(`recognize_fold`). Any other aggregate UDF over a number or a flat tuple
+of numbers runs as a general fold (`ScanFold`): row terms over the batch
+and a register program folded in row order per key on the device. The
+rest folds row by row on the interpreter, with the same result.
 """
 
 from __future__ import annotations
@@ -278,3 +280,87 @@ def device_fold_spec(op) -> Optional[FoldSpec]:
             not all(isinstance(v, (int, float)) for v in init):
         return None
     return spec
+
+
+# ---------------------------------------------------------------------------
+# general folds: any aggregate UDF over a numeric accumulator
+# ---------------------------------------------------------------------------
+
+def _flatten_acc(v, n_leaves: int, scalar: bool):
+    """An accumulator value as its leaves' (tag, payload) pairs, or None
+    when it no longer fits the fold's shape: a value of another arity, a
+    None, a str, an int beyond int64. (The reference's static leaf types,
+    `_acc_leaf_types`, `_check_acc_scalar` and `_zero_of`, have no
+    counterpart: each leaf's tag is its type.)"""
+    from ..ops.segfold import pack_value
+
+    vals = (v,) if scalar else v
+    if not isinstance(vals, tuple) or len(vals) != n_leaves:
+        return None
+    try:
+        return [pack_value(x) for x in vals]
+    except ValueError:
+        return None
+
+
+def _unflatten_acc(leaves: list, scalar: bool):
+    from ..ops.segfold import unpack_value
+
+    vals = tuple(unpack_value(t, p) for t, p in leaves)
+    return vals[0] if scalar else vals
+
+
+class ScanFold:
+    """A general fold (counterpart of the reference's `ScanFold`,
+    `tuplex_tpu/plan/aggregates.py:385`): the aggregate UDF as row terms
+    and a register program (compiler/foldprog.py), which ops/segfold.py
+    folds per segment in row order, on the card by csrc/seg_fold.cu.
+
+    The reference fixes each leaf's type by a fixpoint over traced
+    result types (`try_build` :397) and widens an int leaf to float for
+    every key. Here each leaf carries its Python type per segment, as the
+    loop's accumulator does: an int leaf becomes a float at the first row
+    that makes it one, and a key that folded no such row keeps an int."""
+
+    def __init__(self, prog, n_leaves: int, scalar: bool):
+        self.prog = prog
+        self.n_leaves = n_leaves
+        self.scalar = scalar
+
+    @classmethod
+    def try_build(cls, op) -> Optional["ScanFold"]:
+        """The general fold of an aggregate, or None when its accumulator
+        is not a number or a flat tuple of numbers, or its UDF is outside
+        the program's subset: it then folds on the interpreter."""
+        from ..compiler.foldprog import lower_fold
+        from ..core.errors import NotCompilable
+
+        init = op.initial
+        scalar = not isinstance(init, tuple)
+        n = 1 if scalar else len(init)
+        if _flatten_acc(init, n, scalar) is None:
+            return None
+        try:
+            prog = lower_fold(op.aggregate_udf, n, scalar)
+        except NotCompilable:
+            return None
+        return cls(prog, n, scalar)
+
+    def encode_segments(self, values: list):
+        """One accumulator value per segment as (payloads [nseg, L] int64,
+        tags [nseg, L] int8) numpy arrays, or None when a value no longer
+        fits (its partition then folds on the interpreter)."""
+        import numpy as np
+
+        flat = [_flatten_acc(v, self.n_leaves, self.scalar) for v in values]
+        if any(f is None for f in flat):
+            return None
+        arr = np.array(flat, dtype=np.int64).reshape(len(values),
+                                                    self.n_leaves, 2)
+        return (np.ascontiguousarray(arr[:, :, 1]),
+                arr[:, :, 0].astype(np.int8))
+
+    def decode_segments(self, payloads, tags) -> list:
+        """The segments' accumulators as Python values."""
+        return [_unflatten_acc(list(zip(t, p)), self.scalar)
+                for p, t in zip(payloads.tolist(), tags.tolist())]

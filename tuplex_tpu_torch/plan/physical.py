@@ -32,13 +32,14 @@ import torch
 from ..compiler.emitter import EmitCtx, Emitter, Frame
 from ..compiler.pypipeline import build_python_pipeline
 from ..compiler.stagefn import input_row_cv, result_arrays
-from ..compiler.values import CV, cv_arrays, cv_rebuild, null_cv, tuple_cv
+from ..compiler.values import (CV, cv_arrays, cv_rebuild, materialize,
+                               null_cv, tuple_cv)
 from ..core import typesys as T
 from ..core.errors import (ExceptionCode, NotCompilable,
                            exception_class_for_code)
 from ..ops import strings as S
 from ..runtime.columns import user_columns
-from ..runtime.torchcfg import I32
+from ..runtime.torchcfg import F64, I32, I64
 from . import logical as L
 
 
@@ -377,6 +378,47 @@ def eval_fold_terms(spec, row: CV, fin: torch.Tensor, b: int, device):
         datas.append(d)
     ok = fin & (fctx.err == 0)
     return datas, ok, spec.order_risk(datas, ok)
+
+
+def eval_row_terms(prog, row: CV, fin: torch.Tensor, b: int, device):
+    """The row terms of a general fold (compiler/foldprog.py FoldProgram)
+    over a batch: (vals [T, B] int64, metas [T, B] int32), each term under
+    an error context of its own. A term's meta word holds its error class
+    (deferred: ops/segfold.py raises it only where the program reaches the
+    term; an internal one where an eager term raised anything) and the
+    row's value tag, TAG_NONE where an Option term is None.
+    A float's payload is its bits. Raises NotCompilable outside the
+    compiled subset, or for a term the program reads that is not a
+    number."""
+    from ..ops import segfold as SF
+
+    env = {prog.row_param: row}
+    vals = torch.zeros((len(prog.terms), b), dtype=I64, device=device)
+    metas = torch.zeros((len(prog.terms), b), dtype=torch.int32,
+                        device=device)
+    for t, term in enumerate(prog.terms):
+        tctx = EmitCtx(b, fin)
+        cv = Frame(Emitter(tctx, prog.globals), dict(env)).eval(term.expr)
+        if term.local is not None:
+            env[term.local] = cv
+        meta = tctx.err & 0xFF
+        if term.eager:
+            meta = torch.where(meta != 0, SF.INTERNAL_CLASS, 0).to(
+                torch.int32)
+        if term.loaded:
+            cv = materialize(cv, b, device)
+            if cv.data is None or cv.base not in (T.BOOL, T.I64, T.F64):
+                raise NotCompilable(f"fold term of type {cv.t}")
+            tag = {T.BOOL: SF.TAG_BOOL, T.I64: SF.TAG_INT,
+                   T.F64: SF.TAG_FLOAT}[cv.base]
+            d = cv.data
+            vals[t] = d.view(I64) if d.dtype == F64 else d.to(I64)
+            tags = torch.full((b,), tag, dtype=torch.int32, device=device)
+            if cv.valid is not None:
+                tags = torch.where(cv.valid, tags, SF.TAG_NONE)
+            meta = meta | (tags << 8)
+        metas[t] = meta
+    return vals, metas
 
 
 def fold_identity(red: str, d: torch.Tensor):
