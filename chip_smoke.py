@@ -73,11 +73,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
      (seed 5): a column empty through the sniffed sample, then filled;
      every filled row finished by the general-case tier on the card, none
      interpreted, the rows equal to the plain loop's;
- 12. the general fold (csrc/seg_fold.cu): the kernel against its plain
-     version (ops/segfold.py seg_fold_plain) on seeded batches of
-     1,000,000 rows in 1, 6, 2,352 and 250,000 segments, each through a
-     4-instruction and a longer program, every output equal bit for bit,
-     kernel and plain version timed; then three general folds over phase
+ 12. the general fold (csrc/seg_fold.cu): the latency of one dependent
+     FP64 operation on the card (the kernel's calibration chain); the
+     kernel against its plain version (ops/segfold.py seg_fold_plain) on
+     seeded batches of 1,000,000 rows in 1, 6, 2,352 and 250,000
+     segments, each through a 4-instruction and a longer program, every
+     output equal bit for bit, kernel and plain version timed, each
+     batch's layout (segments on a warp, on a thread), its memory bound
+     and its serial bound printed beside PR 15's kernel time; then three
+     general folds over phase
      7's lineitem file through Context() on the card, each equal to a
      plain loop with `==` on its repr (floats bit for bit, groups in the
      loop's order): G1 by (returnflag, linestatus), G2 by shipdate, G3 over
@@ -198,6 +202,16 @@ EDGE_PATTERNS = [logs.ERROR_STATUS, "b$", "^a.*b$", "[ab]" * 64]
 # positions
 EARLIER_MS = {"log-grep batch": 0.1118, logs.ERROR_STATUS: 0.2972,
               "[ab]" * 64: 2.036}
+# ms of the one-thread-per-segment general fold (PR 15) on the seeded
+# batches and on G2's largest input, as PERF.md records them (H100 80GB
+# HBM3, 700 W)
+EARLIER_FOLD_MS = {("fold_short", 1): 1090.43, ("fold_short", 6): 219.55,
+                   ("fold_short", 2_352): 0.7410,
+                   ("fold_short", 250_000): 0.1020,
+                   ("fold_long", 1): 3398.36, ("fold_long", 6): 919.40,
+                   ("fold_long", 2_352): 3.6087,
+                   ("fold_long", 250_000): 0.6375,
+                   ("G2's largest input", 2_352): 0.3521}
 
 
 def card_line() -> str:
@@ -1163,12 +1177,16 @@ def fold_batch(rng, prog, nseg: int, dev):
     return put[0], put[1], order, offsets, put[2], put[3], put[4]
 
 
-def fold_kernel(prog, inputs, what: str, reps: int = 3) -> dict:
+def fold_kernel(prog, inputs, what: str, op_ns: float,
+                reps: int = 3) -> dict:
     """seg_fold's kernel against its plain version on the same inputs on
-    the card (every output equal), and the times of both; the bound: each
-    folded row's terms (8-byte payload, 4-byte meta word) and its place in
-    `order` read once, the segment table read once, the statuses and the
-    segments' outputs written once, at the device memory rate."""
+    the card (every output equal), and the times of both. Two bounds: the
+    memory bound (each folded row's terms, 8-byte payload and 4-byte meta
+    word, and its place in `order` read once, the segment table read once,
+    the statuses and the segments' outputs written once, at the device
+    memory rate) and the serial bound (the longest segment's folded rows
+    times the program's chain of dependent arithmetic through the
+    accumulator times `op_ns`, one dependent FP64 operation)."""
     t0 = time.perf_counter()
     want = SF.seg_fold_plain(prog, *inputs)
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1184,24 +1202,35 @@ def fold_kernel(prog, inputs, what: str, reps: int = 3) -> dict:
         raise AssertionError(f"seg_fold kernel != plain on {what}: {bad}")
     ms, host_ms = kernel_device_ms(
         lambda: segfold_cuda.seg_fold(prog, *inputs), reps)
-    vals, _, order, _, _, seeds, _ = inputs
+    vals, _, order, offsets, _, seeds, _ = inputs
     nterm, b = vals.shape
     m = order.shape[0]
     nseg, nleaf = seeds.shape
     bytes_ = m * (12 * nterm + 8) + nseg * (16 + 9 * nleaf) + b + \
         nseg * (24 + 9 * nleaf)
     bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    dec = SF.decoded(prog, nleaf)
+    longest = int(want.count.max()) if nseg else 0
+    serial_ms = longest * dec.chain * op_ns * 1e-6
+    n_warp, n_thread = segfold_cuda.layout_counts(offsets.cpu())
+    key = (what.split("(")[-1].rstrip(")"), nseg) if "(" in what \
+        else (what, nseg)
+    earlier = EARLIER_FOLD_MS.get(key)
     st = got.status
-    print(f"seg_fold on {what}: {m} rows in {nseg} segments, "
-          f"{len(prog)}-instruction program, {nterm} terms: "
-          f"{int((st == SF.ST_FOLDED).sum())} folded, "
+    print(f"seg_fold on {what}: {m} rows in {nseg} segments "
+          f"({n_warp} on a warp each, {n_thread} on a thread each), "
+          f"{len(prog)}-instruction program decoded to {len(dec)}, "
+          f"{nterm} terms: {int((st == SF.ST_FOLDED).sum())} folded, "
           f"{int((st >= SF.ST_EXC).sum())} exceptions, "
           f"{int((got.stop >= 0).sum())} segments stopped "
           f"({int((st == SF.ST_HOST).sum())} rows for the host); kernel "
-          f"{ms:.4f} ms ({host_ms:.4f} ms of host time per wrapper call), "
-          f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-          f"({bytes_} bytes); kernel == plain")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+          f"{ms:.4f} ms (PR 15's kernel {earlier} ms; {host_ms:.4f} ms of "
+          f"host time per wrapper call), plain {plain_ms:.1f} ms, memory "
+          f"bound {bound_ms:.4f} ms ({bytes_} bytes), serial bound "
+          f"{serial_ms:.4f} ms ({longest} rows x chain {dec.chain} x "
+          f"{op_ns:.3f} ns); kernel == plain")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "serial_bound_ms": serial_ms}
 
 
 def recording_folds(inputs: list):
@@ -1228,13 +1257,17 @@ def fold_phase(path: str, dirty: str, dev) -> tuple[int, dict]:
     """The general fold's kernel on seeded batches, then G1-G3 on the
     card against the plain loops. Returns (kernel launches in G1-G3's runs
     on the clean file, the kernel's numbers on G2's largest input)."""
+    op_ns, op_cycles = segfold_cuda.calibrate(dev)
+    print(f"seg_fold calibration: a dependent FP64 operation (__dmul_rn, "
+          f"__dadd_rn chain on one thread) takes {op_ns:.3f} ns, "
+          f"{op_cycles:.2f} cycles")
     rng = np.random.default_rng(11)
     for fn, n_leaves, scalar in ((fold_short, 1, True),
                                  (fold_long, 2, False)):
         prog = lower_fold(get_udf_source(fn), n_leaves, scalar)
         for nseg in FOLD_SEGMENTS:
             fold_kernel(prog, fold_batch(rng, prog, nseg, dev),
-                        f"a seeded batch ({fn.__name__})")
+                        f"a seeded batch ({fn.__name__})", op_ns)
     rows, read_s = timed(lambda: tpch.read_lineitem_dicts(path))
     print(f"general folds: read {len(rows)} lineitem rows as dicts for "
           f"the loops in {read_s:.3f} s")
@@ -1303,7 +1336,7 @@ def fold_phase(path: str, dirty: str, dev) -> tuple[int, dict]:
               f"the card, {agg['scan_stopped_segments']} segments stopped, "
               f"{agg['host_folded_rows']} rows folded on the host")
     prog, args = max(recorded, key=lambda pa: pa[1][2].shape[0])
-    nums = fold_kernel(prog, args, "G2's largest input", reps=10)
+    nums = fold_kernel(prog, args, "G2's largest input", op_ns, reps=10)
     return launches, nums
 
 

@@ -236,3 +236,55 @@ def test_csv_pipeline_matches_reference(tmp_path):
     assert ds.exception_counts() == ref.exception_counts()
     assert port.metrics.stages[-1]["tier"] == "compiled"
     assert port.metrics.deviceErrorRows() >= 5
+
+
+# -- C12: bytes that are not UTF-8 ---------------------------------------------
+
+BAD_UTF8 = b"a,b\n1,\xff\xfe\n2,ok\n"
+
+
+@pytest.mark.parametrize("path_kind", ["native", "python"])
+def test_c12_invalid_utf8_raises_before_any_row(tmp_path, monkeypatch,
+                                                path_kind):
+    """The CSV source raises UnicodeDecodeError naming the file, at the
+    same offset and for the same reason as CPython's decode of the file,
+    on the native splitter and on its numpy path, before any row."""
+    from tuplex_tpu_torch import native
+
+    if path_kind == "python":
+        monkeypatch.setattr(native, "_mod", None)
+        monkeypatch.setattr(native, "_tried", True)
+    elif native.get() is None:
+        pytest.skip("no g++ on PATH: the native module is not built")
+    path = tmp_path / "bad.csv"
+    path.write_bytes(BAD_UTF8)
+    with pytest.raises(UnicodeDecodeError) as got:
+        BAD_UTF8.decode("utf-8")
+    want = got.value
+    ds = tuplex_tpu_torch.Context(device="cpu").csv(str(path))
+    with pytest.raises(UnicodeDecodeError) as got:
+        ds.collect()
+    e = got.value
+    assert (e.start, e.end) == (want.start, want.end)
+    assert e.reason.startswith(want.reason) and str(path) in str(e)
+
+
+def test_c12_loop_and_reference_raise_too(tmp_path):
+    """The oracles: a loop over the file opened as UTF-8 and the reference
+    package both raise a ValueError (UnicodeDecodeError, ArrowInvalid)."""
+    import tuplex_tpu
+
+    path = tmp_path / "bad.csv"
+    path.write_bytes(BAD_UTF8)
+    with pytest.raises(ValueError):
+        with open(path, encoding="utf-8", newline="") as fp:
+            list(csv.reader(fp))
+    with pytest.raises(ValueError):
+        tuplex_tpu.Context().csv(str(path)).collect()
+
+
+def test_c12_text_source_keeps_replacement_characters(tmp_path):
+    path = tmp_path / "bad.txt"
+    path.write_bytes(BAD_UTF8)
+    got = tuplex_tpu_torch.Context(device="cpu").text(str(path)).collect()
+    assert got == BAD_UTF8.decode("utf-8", "replace").splitlines()

@@ -529,14 +529,16 @@ _SEGFOLD_PROGRAMS = {"short": (_segfold_short, 0.0),
                      "locals": (_segfold_locals, 1)}
 
 
-def _segfold_inputs(prog, init, n, nseg, seed, dev):
+def _segfold_inputs(prog, init, n, nseg, seed, dev, codes=None):
     """Seeded terms for programs over x[0] (floats with NaN, signed zeros
     and infinities), x[1] (ints), x[2] (bools) and x[3] (small ints with
     zeros); exact classes in some rows. What stops a segment (ints beyond
     2**53 and near int64's ends, internal codes, Nones, a limit row) only
-    in odd segments, so that even ones fold to their end."""
+    in odd segments, so that even ones fold to their end. `codes` [n]
+    gives each row's segment (-1: none), else they are drawn."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(-1, nseg, n)     # -1: a row in no segment
+    if codes is None:
+        codes = rng.integers(-1, nseg, n)     # -1: a row in no segment
     odd = codes % 2 == 1
     vals = np.zeros((len(prog.terms), n), dtype=np.int64)
     metas = np.zeros((len(prog.terms), n), dtype=np.int32)
@@ -692,3 +694,175 @@ def test_lineitem_fold_jobs_on_cuda(tmp_path, cuda_device):
             assert repr(got) == repr(want)
             assert ds.exception_counts() == excs
             assert segfold_cuda.launches > before
+
+
+def _same_fold(prog, inputs):
+    """The kernel's six outputs against its plain version's; returns the
+    plain result."""
+    before = segfold_cuda.launches
+    got = SF.seg_fold(prog, *inputs)
+    want = SF.seg_fold_plain(prog, *inputs)
+    torch.cuda.synchronize()
+    assert segfold_cuda.launches == before + 1
+    for f in ("acc", "acc_tags", "first", "count", "stop", "status"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    return want
+
+
+def _sized_codes(lens, seed: int):
+    """Row codes giving segment s exactly lens[s] rows, the segments'
+    rows interleaved, and some rows in no segment."""
+    rng = np.random.default_rng(seed)
+    codes = np.concatenate([np.repeat(np.arange(len(lens)), lens),
+                            np.full(len(lens) + 7, -1)])
+    return rng.permutation(codes)
+
+
+# a warp stages TILE rows at once; LONG_ROWS rows take a warp
+_TILE = 32
+_SEG_LENS = [0, 1, _TILE - 1, _TILE, _TILE + 1, 2 * _TILE - 1, 2 * _TILE,
+             2 * _TILE + 1, 3 * _TILE - 1, 3 * _TILE, 3 * _TILE + 1,
+             3 * _TILE + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["short", "mixed", "locals"])
+@pytest.mark.parametrize("length", _SEG_LENS)
+def test_seg_fold_kernel_segment_lengths(name, length, cuda_device):
+    """Two segments of one length (one folds to its end, one may stop),
+    across the tile and the warp layout's thresholds."""
+    prog, init = _lowered(name)
+    codes = _sized_codes([length, length], length)
+    inputs = _segfold_inputs(prog, init, len(codes), 2, length, cuda_device,
+                             codes)
+    _same_fold(prog, inputs)
+    assert segfold_cuda.layout_counts(inputs[3].cpu()) == (
+        (2, 0) if length >= segfold_cuda.LONG_ROWS else (0, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_SEGFOLD_PROGRAMS))
+def test_seg_fold_kernel_both_layouts_in_one_launch(name, cuda_device):
+    """Every length of _SEG_LENS and long segments of 500-3,000 rows in
+    one launch: warps and threads side by side."""
+    prog, init = _lowered(name)
+    lens = _SEG_LENS * 3 + [500, 1234, 3000, 64 * 40 + 3]
+    codes = _sized_codes(lens, 5)
+    inputs = _segfold_inputs(prog, init, len(codes), len(lens), 11,
+                             cuda_device, codes)
+    want = _same_fold(prog, inputs)
+    n_long, n_short = segfold_cuda.layout_counts(inputs[3].cpu())
+    assert n_long > 0 and n_short > 0
+    assert (want.status == SF.ST_FOLDED).any()
+
+
+@pytest.mark.cuda
+def test_seg_fold_kernel_stops_and_limits_at_tile_edges(cuda_device):
+    """An internal code on the first and on the last row of a warp's
+    tile, and a limit on a tile boundary, in long segments; a stop on a
+    short segment's first row. Even segments fold to their end otherwise,
+    so each stop is where it was put."""
+    prog, init = _lowered("short")
+    lens = [5 * _TILE] * 8 + [40] * 4
+    codes = _sized_codes(lens, 3)
+    vals, metas, order, offsets, limits, seeds, tags = _segfold_inputs(
+        prog, init, len(codes), len(lens), 3, cuda_device, codes)
+    seg_rows = [order[offsets[s]:offsets[s + 1]].cpu() for s in
+                range(len(lens))]
+    metas = metas.clone()
+    limits = limits.clone()
+    want_stop = {}
+    for s, at in ((0, 2 * _TILE), (2, 3 * _TILE - 1), (8, 0)):
+        r = int(seg_rows[s][at])
+        metas[:, r] = SF.INTERNAL_CLASS
+        want_stop[s] = r
+    r = int(seg_rows[4][3 * _TILE])
+    limits[4] = r
+    want_stop[4] = r
+    want = _same_fold(prog, (vals, metas, order, offsets, limits, seeds,
+                             tags))
+    for s, r in want_stop.items():
+        assert int(want.stop[s]) == r, s
+        assert int(want.count[s]) < lens[s]
+    assert int(want.stop[6]) == -1 and int(want.stop[10]) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["short", "ints", "builtins"])
+def test_seg_fold_kernel_one_long_segment(name, cuda_device):
+    """One segment of 200,000 rows (the warp layout over 6,250 tiles)."""
+    prog, init = _lowered(name)
+    codes = np.zeros(200_000, dtype=np.int64)
+    codes[::997] = -1
+    inputs = _segfold_inputs(prog, init, len(codes), 1, 17, cuda_device,
+                             codes)
+    want = _same_fold(prog, inputs)
+    assert int(want.count[0]) > 150_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nseg", [1, 3])
+def test_seg_fold_kernel_decay_bits(nseg, cuda_device):
+    """`a * 0.9 + x` straight through the wrapper over 200,000 floats: the
+    product and the sum round apart (__dmul_rn, __dadd_rn), so every
+    segment's result has a loop's bits."""
+    def decay(a, x):
+        return a * 0.9 + x
+
+    prog = lower_fold(get_udf_source(decay), 1, True)
+    rng = np.random.default_rng(23)
+    n = 200_000
+    v = rng.uniform(-1e3, 1e3, n)
+    codes = rng.integers(0, nseg, n)
+    order, offsets = SF.segment_layout(torch.from_numpy(codes), nseg)
+    inputs = [torch.from_numpy(v.view(np.int64))[None, :],
+              torch.full((1, n), SF.TAG_FLOAT << 8, dtype=torch.int32),
+              order, offsets, torch.full((nseg,), n),
+              torch.zeros((nseg, 1), dtype=torch.int64),
+              torch.full((nseg, 1), SF.TAG_FLOAT, dtype=torch.int8)]
+    got = SF.seg_fold(prog, *[t.to(cuda_device) for t in inputs])
+    want = [0.0] * nseg
+    for x, k in zip(v.tolist(), codes.tolist()):
+        want[k] = want[k] * 0.9 + x
+    assert got.acc[:, 0].cpu().numpy().view(np.float64).tolist() == want
+
+
+@pytest.mark.cuda
+def test_seg_fold_kernel_float_floordiv_mod_edges(cuda_device):
+    """Float `//` and `%` (the kernel's exact remainder: one FMA where the
+    quotient is below 2**53, libm's fmod beyond) over quotients near
+    integers, exact multiples, huge and tiny ratios, signed zeros,
+    infinities and NaN. One row a segment, the divisor its accumulator,
+    so every result is an output."""
+    def divmod_fold(a, x):
+        return (x // a[0], x % a[0])
+
+    prog = lower_fold(get_udf_source(divmod_fold), 2, False)
+    ops = {q[0] for q in SF.decoded(prog, 2).code.tolist()}
+    assert {SF.FLOORDIV, SF.MOD} <= ops
+    rng = np.random.default_rng(31)
+    n = 60_000
+    y = rng.uniform(-50.0, 50.0, n) * 10.0 ** rng.integers(-5, 6, n)
+    q = rng.integers(-(1 << 20), 1 << 20, n).astype(np.float64)
+    x = q * y + rng.choice([0.0, 1e-12, -1e-12, 0.5], n) * y
+    x[::7] = rng.uniform(-1e300, 1e300, len(x[::7]))
+    x[::11] = np.nextafter(x[::11], np.inf)
+    y[::13] = np.nextafter(y[::13], -np.inf)
+    for at, v in ((0, -0.0), (1, np.inf), (2, -np.inf), (3, np.nan),
+                  (4, 1e-308), (5, 5e-324)):
+        x[at] = v
+    for at, v in ((6, np.inf), (7, -np.inf), (8, np.nan), (9, 5e-324),
+                  (10, -0.0)):
+        y[at] = v
+    order, offsets = SF.segment_layout(torch.arange(n), n)
+    seeds, tags = A.ScanFold(prog, 2, False).encode_segments(
+        [(float(v), 0.0) for v in y])
+    nt = len(prog.terms)            # each `x` is a term of its own
+    inputs = [t.to(cuda_device) for t in (
+        torch.from_numpy(np.stack([x] * nt).view(np.int64).copy()),
+        torch.full((nt, n), SF.TAG_FLOAT << 8, dtype=torch.int32),
+        order, offsets, torch.full((n,), n), torch.from_numpy(seeds),
+        torch.from_numpy(tags))]
+    want = _same_fold(prog, inputs)
+    assert (want.status == SF.ST_EXC + SF.ZERODIVISION).sum() == 1
+    assert (want.status == SF.ST_FOLDED).sum() == n - 1

@@ -192,8 +192,10 @@ def test_wide_fixtures_set_their_own_aot_store():
 
 
 def test_package_imports_neither_jax_nor_reference():
-    paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_zillow_profile.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "scripts", f) for f in (
+            "torch_zillow_profile.py", "torch_segfold_compare.py",
+            "torch_csv_utf8_cost.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert os.path.join(PKG, "native", "__init__.py") in paths

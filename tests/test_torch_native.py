@@ -453,3 +453,27 @@ def test_concurrent_builds_load_one_library(tmp_path):
     assert os.path.dirname(lib) == str(build)
     assert sorted(os.listdir(build)) == sorted([os.path.basename(lib),
                                                 "native.lock"])
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.sampled_from([b"a", b",", b'"', b"\n", b"\xc3\xa9",
+                                 b"\xe2\x82\xac", b"\xf0\x9f\x98\x80",
+                                 b"\xc3", b"\xe2\x82", b"\x80", b"\xff",
+                                 b"\xed\xa0\x80", b"\xc0\xaf"]),
+                min_size=1, max_size=40), st.integers(1, 3))
+def test_split_csv_utf8_check_matches_cpython(pieces, k):
+    """Both splitters accept exactly the bytes CPython decodes as UTF-8
+    and otherwise raise its error: the same offsets and reason."""
+    data = b"".join(pieces)
+    try:
+        data.decode("utf-8")
+        want = None
+    except UnicodeDecodeError as e:
+        want = (e.start, e.end, e.reason)
+    for split in (N.split_csv, csvsource._split_records):
+        try:
+            split(data, ord(","), ord('"'), k, False)
+            got = None
+        except UnicodeDecodeError as e:
+            got = (e.start, e.end, e.reason)
+        assert got == want, split

@@ -13,6 +13,7 @@ pipelines of Z1's and flights' stages are held to the closure tier on
 every row that reaches the interpreter. Tolerance: exact.
 """
 
+import csv
 import functools
 
 import jax  # noqa: F401  (configured for the CPU by conftest)
@@ -303,3 +304,66 @@ def test_flights_stages_run_the_source_tier(tmp_path):
     assert _check_stage(first, source_partitions(ctx, first.source)) == 10
     parts, _ = run_plan(ctx, last.source)
     assert _check_stage(last, parts) > 0
+
+
+# -- C11: a map that returns its row ------------------------------------------
+
+def _returned_row_csv(path) -> list:
+    """A CSV file whose last three records take the interpreter (a short
+    record, a long one and one with a quoted newline), and the loop's rows
+    for it: cells decoded as the sniffed types (int, str, float), a missing
+    cell None, cells past the header's three dropped."""
+    lines = [f"{i},x{i},{i}.5" for i in range(40)]
+    lines += ["2,y", "2,y,3.5,9", '1,"x\ny",2.5']
+    with open(path, "w") as fp:
+        fp.write("a,b,c\n" + "\n".join(lines) + "\n")
+    with open(path, newline="") as fp:
+        recs = list(csv.reader(fp))[1:]
+    dec = (int, str, float)
+    return [tuple(d(r[i]) if i < len(r) and r[i] != "" else None
+                  for i, d in enumerate(dec)) for r in recs]
+
+
+def _returned_row_cases(tmp_path):
+    data = [(1, "a"), ("z", "b")] + [(i, "c") for i in range(30)]
+    path = str(tmp_path / "rows.csv")
+    want = _returned_row_csv(path)
+    return {"boxed": (lambda c: c.parallelize(data, columns=["a", "b"]),
+                      data),
+            "csv": (lambda c: c.csv(path), want)}
+
+
+@pytest.mark.parametrize("udf,loop_fn", [
+    (lambda x: x, tuple),
+    (lambda x: x[1], lambda t: t[1]),
+    (lambda x: len(x), len),
+], ids=["identity", "second-field", "len"])
+@pytest.mark.parametrize("case", ["boxed", "csv"])
+def test_c11_returned_row_collects_the_loops_values(tmp_path, case, udf,
+                                                    loop_fn):
+    """`.map(lambda x: x)` returns the row itself: boxed and CSV rows that
+    take the interpreter (short, long and quoted-newline records among
+    them) collect the loop's tuples, and a map after it reads the row's
+    fields, as a loop over the same rows does."""
+    make, rows = _returned_row_cases(tmp_path)[case]
+    ctx = tuplex_tpu_torch.Context(device="cpu")
+    got = make(ctx).map(lambda x: x).map(udf).collect()
+    assert got == [loop_fn(r) for r in rows]
+    assert ctx.metrics.interpreterRows() >= (3 if case == "csv" else 1)
+    assert not any(isinstance(v, Row) for v in got)
+
+
+def test_c11_source_tier_keeps_a_returned_rows_fields():
+    """The generated pipeline (and the closure tier) over a terminal map
+    that returns its row: the result keeps the row's values and names."""
+    def build(L, src):
+        return [L.MapOperator(src([(1, "a")], ["a", "b"]), lambda x: x)]
+
+    ops = _ops("port", build)
+    closure = P._build_closure_pipeline(ops)
+    source = P._try_build_source_pipeline(ops, AB, closure)
+    assert source is not None and source.__name__ == "_tpx_pipeline"
+    for pipe in (source, closure):
+        status, out = pipe(Row(("z", "b"), AB))
+        assert status == "ok" and out.values == ("z", "b")
+        assert out.columns == AB and out.unwrap() == ("z", "b")

@@ -24,10 +24,12 @@ import torch
 
 import tuplex_tpu
 import tuplex_tpu_torch
+from tuplex_tpu_torch.compiler.foldprog import lower_fold
 from tuplex_tpu_torch.core.row import Row
 from tuplex_tpu_torch.models import tpch
 from tuplex_tpu_torch.ops import segfold as SF
 from tuplex_tpu_torch.plan import aggregates as A
+from tuplex_tpu_torch.utils.reflection import get_udf_source
 
 CONF = {"tuplex.partitionSize": "4KB"}
 COLS = ["k", "v", "w", "i", "j"]
@@ -111,10 +113,21 @@ def with_locals(a, x):
     return s
 
 
+def read_by_branch(a, x):
+    """A local that a sum reads and a branch tests: the product stays a
+    value of its own, not fused into the sum."""
+    h = a * 0.5
+    s = h + x["v"]
+    if h:
+        return s
+    return a + 1
+
+
 FOLDS = {
     "conditional-sum": (lambda a, x: a + x["v"] if x["v"] > 0 else a, 0),
     "decay": (decay, 0.0),
     "decay-int-initial": (decay, 0),
+    "local-read-by-branch": (read_by_branch, 1.0),
     "def-locals-if-else": (with_locals, 0),
     "min-max-acc-first": (lambda a, x: (min(a[0], x["v"]), max(a[1], x["v"]))
                           if x["i"] != 0 else a, (0.0, -0.0)),
@@ -426,3 +439,237 @@ def test_plain_version_statuses_and_stop_rule():
     assert res.stop.tolist() == [5, 6]
     assert res.status.tolist() == [1, 1, 1, SF.ST_EXC + SF.ZERODIVISION, 1,
                                    2, 2, 2, 2, 0]
+
+
+# -- the decoded program against the lowered one ------------------------------
+
+def _undecoded_row(code, consts, vals, metas, r: int, acc: list) -> list:
+    """The lowered program interpreted as it stands (the plain version
+    before the decode): every ACC, CONST, MOV and OUT executed."""
+    regs: list = [None] * SF.MAX_REGS
+    res = list(acc)
+    pc = 0
+    while pc < len(code):
+        op, dst, a, b = code[pc]
+        pc += 1
+        if op == SF.TERM:
+            meta = metas[a][r]
+            cls = meta & 0xFF
+            if cls:
+                raise SF._Stop if cls >= SF.INTERNAL_CLASS else \
+                    SF._Raise(cls)
+            if dst >= 0:
+                if (meta >> 8) & 3 == SF.TAG_NONE:
+                    raise SF._Stop
+                regs[dst] = SF.unpack_value((meta >> 8) & 3, vals[a][r])
+        elif op == SF.ACC:
+            regs[dst] = acc[a]
+        elif op == SF.CONST:
+            regs[dst] = consts[a]
+        elif op == SF.MOV:
+            regs[dst] = regs[a]
+        elif op == SF.OUT:
+            res[dst] = regs[a]
+        elif op == SF.JMP:
+            pc = dst
+        elif op in (SF.JZ, SF.JNZ):
+            if bool(regs[a]) == (op == SF.JNZ):
+                pc = dst
+        elif op == SF.STOP:
+            raise SF._Stop
+        elif op >= SF.NEG:
+            regs[dst] = SF._unop(op, regs[a])
+        else:
+            regs[dst] = SF._binop(op, regs[a], regs[b])
+    return res
+
+
+def _undecoded_fold(prog, vals, metas, order, offsets, limits, seeds,
+                    seed_tags) -> list:
+    """The six outputs of seg_fold_plain, folded by _undecoded_row."""
+    nseg, nleaf = seeds.shape
+    code = [tuple(q) for q in prog.code.tolist()]
+    consts = [SF.unpack_value(t, p) for t, p in prog.consts.tolist()]
+    vl, ml, od = vals.tolist(), metas.tolist(), order.tolist()
+    off, lim = offsets.tolist(), limits.tolist()
+    acc_out = np.zeros((nseg, nleaf), np.int64)
+    tag_out = np.zeros((nseg, nleaf), np.int8)
+    first = np.full(nseg, -1, np.int64)
+    count = np.zeros(nseg, np.int64)
+    stop = np.full(nseg, -1, np.int64)
+    status = np.zeros(vals.shape[1], np.int8)
+    for s in range(nseg):
+        acc = [SF.unpack_value(t, p)
+               for t, p in zip(seed_tags[s].tolist(), seeds[s].tolist())]
+        for r in od[off[s]:off[s + 1]]:
+            if stop[s] >= 0 or r >= lim[s]:
+                stop[s] = r if stop[s] < 0 else stop[s]
+                status[r] = SF.ST_HOST
+                continue
+            try:
+                acc = _undecoded_row(code, consts, vl, ml, r, acc)
+            except SF._Raise as e:
+                status[r] = SF.ST_EXC + e.cls
+                continue
+            except SF._Stop:
+                stop[s], status[r] = r, SF.ST_HOST
+                continue
+            status[r] = SF.ST_FOLDED
+            first[s] = r if first[s] < 0 else first[s]
+            count[s] += 1
+        for j, v in enumerate(acc):
+            tag_out[s, j], acc_out[s, j] = SF.pack_value(v)
+    return [torch.from_numpy(a) for a in (acc_out, tag_out, first, count,
+                                          stop, status)]
+
+
+def fold_short(a, x):
+    """chip_smoke.py's short fold."""
+    return a + x
+
+
+def fold_long(a, x):
+    """chip_smoke.py's long fold."""
+    if x[1]:
+        return (min(a[0] * 0.999 + x[0], a[0] // x[2]), a[1] + 1)
+    return a
+
+
+LINEITEM_COLS = ["l_extendedprice", "l_discount", "l_returnflag",
+                 "l_linestatus", "l_shipdate"]
+
+
+def _decode_program(name):
+    """(the lowered program, its initial value) of a fold the decode
+    test runs: G1-G3 as the aggregate stage builds them, chip_smoke.py's
+    two folds, the reference's scan-fold cases and this file's FOLDS."""
+    if name in ("g1", "g2", "g3"):
+        ds = _port().parallelize([(1.0, 0.05, "A", "F", "1998-01-01")],
+                                 columns=LINEITEM_COLS)
+        op = getattr(tpch, "fold_" + name)(ds)._op
+        return A.ScanFold.try_build(op).prog, op.initial
+    if name in ("fold_short", "fold_long"):
+        fn, init = (fold_short, 0.0) if name == "fold_short" \
+            else (fold_long, (0.0, 0))
+        scalar = not isinstance(init, tuple)
+        return lower_fold(get_udf_source(fn), 1 if scalar else len(init),
+                          scalar), init
+    rows, cols, fold, init = REFERENCE_CASES[name] \
+        if name in REFERENCE_CASES else (_rows(4), COLS, *FOLDS[name])
+    op = _port().parallelize(rows, columns=cols).aggregate(
+        lambda a, b: a, fold, init)._op
+    return A.ScanFold.try_build(op).prog, init
+
+
+def _decode_batch(prog, init, nseg: int, seed: int, n: int = 2000):
+    """Seeded seg_fold inputs: each term a random tag (bools, small ints
+    with zeros and ints near int64's ends, floats with NaN, -0.0 and
+    infinities); exact classes in some rows; rows in no segment. What
+    stops a segment (an int near int64's ends, an internal code, a None,
+    a limit in a fifth of them) only in odd segments, so that even ones
+    fold to their end."""
+    rng = np.random.default_rng(seed)
+    nt = len(prog.terms)
+    codes = rng.integers(-1, nseg, n)
+    odd = codes % 2 == 1
+    vals = np.zeros((nt, n), np.int64)
+    metas = np.zeros((nt, n), np.int32)
+    for t in range(nt):
+        tag = int(rng.choice([SF.TAG_BOOL, SF.TAG_INT, SF.TAG_FLOAT],
+                             p=[0.2, 0.3, 0.5]))
+        if tag == SF.TAG_FLOAT:
+            f = rng.uniform(-100.0, 100.0, n)
+            f[rng.random(n) < 0.02] = np.nan
+            f[rng.random(n) < 0.02] = -0.0
+            f[rng.random(n) < 0.01] = np.inf
+            f[rng.random(n) < 0.05] = 0.0
+            vals[t] = f.view(np.int64)
+        elif tag == SF.TAG_INT:
+            v = rng.integers(-4, 5, n)
+            big = odd & (rng.random(n) < 0.01)
+            v[big] = rng.integers(-(1 << 62), 1 << 62, int(big.sum())) * 2
+            vals[t] = v
+        else:
+            vals[t] = rng.random(n) < 0.6
+        u = rng.random(n)
+        meta = np.full(n, tag << 8, np.int32)
+        meta[u < 0.01] |= 2                       # ValueError
+        meta[odd & (u >= 0.01) & (u < 0.013)] |= SF.INTERNAL_CLASS
+        meta[odd & (u >= 0.02) & (u < 0.025)] = SF.TAG_NONE << 8
+        metas[t] = meta
+    order, offsets = SF.segment_layout(torch.from_numpy(codes), nseg)
+    limits = np.full(nseg, n, np.int64)
+    few = (rng.random(nseg) < 0.2) & (np.arange(nseg) % 2 == 1)
+    limits[few] = rng.integers(0, n, int(few.sum()))
+    scalar = not isinstance(init, tuple)
+    seeds, tags = A.ScanFold(prog, 1 if scalar else len(init),
+                             scalar).encode_segments([init] * nseg)
+    return (torch.from_numpy(vals), torch.from_numpy(metas), order, offsets,
+            torch.from_numpy(limits), torch.from_numpy(seeds),
+            torch.from_numpy(tags))
+
+
+DECODE_PROGRAMS = ["g1", "g2", "g3", "fold_short", "fold_long",
+                   *sorted(REFERENCE_CASES), "decay", "def-locals-if-else",
+                   "min-max-int-float", "floordiv-mod-acc", "and-or-values",
+                   "chained-compare", "arms-of-two-types", "abs-bool",
+                   "local-read-by-branch"]
+
+
+@pytest.mark.parametrize("nseg", [1, 6, 200])
+@pytest.mark.parametrize("name", DECODE_PROGRAMS)
+def test_decoded_program_equals_the_lowered_one(name, nseg):
+    """seg_fold_plain runs the decoded program; on seeded batches with
+    stops, limits and exact exceptions its six outputs equal those of the
+    lowered program interpreted as it stands, bit for bit."""
+    prog, init = _decode_program(name)
+    dec = SF.decoded(prog, prog.n_leaves)
+    kept = {q[0] for q in dec.code.tolist()}
+    assert not kept & {SF.ACC, SF.CONST, SF.MOV, SF.OUT, SF.JMP}
+    inputs = _decode_batch(prog, init, nseg, len(name) * 7 + nseg)
+    got = SF.seg_fold_plain(prog, *inputs)
+    want = _undecoded_fold(prog, *inputs)
+    for f, w in zip(("acc", "acc_tags", "first", "count", "stop",
+                     "status"), want):
+        assert torch.equal(getattr(got, f), w), f
+    st = want[-1]
+    assert (st == SF.ST_FOLDED).any()
+    assert (st >= SF.ST_EXC).any() or not prog.terms
+    assert (want[4] >= 0).any() == (nseg > 1) or not prog.terms
+
+
+def test_decoded_forms_and_serial_chain():
+    """G3's decode: a branch on its row test; the product and the sum, both
+    float forms (a float constant is an operand), fused into one
+    instruction that writes the leaf and ends the row; the other arm's
+    RET. Its serial chain is still the product then the sum. fold_short's
+    is one ADD that checks its term and writes the leaf: one instruction
+    a row, a chain of one. G1's last ADD applies the RET table itself."""
+    g3, _ = _decode_program("g3")
+    dec = SF.decoded(g3, 1)
+    code = dec.code.tolist()
+    assert [q[0] for q in code] == [SF.JZ, SF.F2 + 2 + 16, SF.RET]
+    assert code[1][6] == 0 and code[2][1] == -1 and dec.chain == 2
+    short, _ = _decode_program("fold_short")
+    dec = SF.decoded(short, 1)
+    assert dec.code.tolist() == [[SF.ADD, 0, SF.K_LEAF << 16,
+                                  SF.K_TERM << 16, 1, 1, 0, 0]]
+    assert dec.chain == 1 and dec.n_regs == 0
+    g1, _ = _decode_program("g1")
+    code = SF.decoded(g1, 2).code.tolist()
+    assert [q[0] for q in code] == [SF.JZ, SF.ADD, SF.ADD, SF.RET]
+    assert code[2][6] == -2 and code[3][1] == -1
+
+
+def test_layout_rule_counts_long_segments():
+    """The kernel's layout rule, as the wrapper reports it: a segment of
+    LONG_ROWS rows or more takes a warp, a shorter one a thread."""
+    from tuplex_tpu_torch.ops import segfold_cuda
+
+    n = segfold_cuda.LONG_ROWS
+    lens = torch.tensor([0, 1, n - 1, n, n + 1, 1000])
+    offsets = torch.zeros(len(lens) + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(lens, 0)
+    assert segfold_cuda.layout_counts(offsets) == (3, 3)
+    assert segfold_cuda.layout_counts(torch.zeros(1, dtype=torch.int64)) \
+        == (0, 0)

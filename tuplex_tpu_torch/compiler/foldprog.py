@@ -14,8 +14,9 @@ the reference package's one-row trace, `tuplex_tpu/plan/aggregates.py:428`
   * the recurrence: the rest, lowered once into a short program of
     (op, dst, a, b) instructions over dynamically typed registers, in
     CPython's order of evaluation, with forward jumps for the branches
-    (the ABI is ops/segfold.py's). `csrc/seg_fold.cu` interprets it, one
-    thread per segment; the same kernel serves every UDF.
+    (the ABI is ops/segfold.py's). ops/segfold.py decodes it once into
+    operands named by their source, and `csrc/seg_fold.cu` interprets the
+    decoded form; the same kernel serves every UDF.
 
 Terms stop at conditional expressions, `and`/`or` and
 `min`/`max`/`abs`/`bool`: the program evaluates those with Python's
@@ -30,7 +31,9 @@ on the interpreter: an accumulator that is not a number or a flat tuple of
 numbers, `**`, bitwise operators, `is`/`in` on the accumulator, method
 calls and `math.*` on it (CUDA's libm is not CPython's), calls of the
 UDF's own helper functions, loops, comprehensions, a local read where it
-may be unassigned.
+may be unassigned, and a program beyond the kernel once decoded (more
+than 32 row terms, or so many branches in a row that the paths, each
+decoded apart, outgrow the kernel's shared memory).
 """
 
 from __future__ import annotations
@@ -75,19 +78,10 @@ class FoldProgram:
     n_leaves: int
     row_param: str
     globals: dict = field(default_factory=dict)
-    _copies: dict = field(default_factory=dict, repr=False)
+    _decoded: Optional[S.Decoded] = field(default=None, repr=False)
 
     def __len__(self) -> int:
         return self.code.shape[0]
-
-    def on(self, device) -> tuple:
-        """(code, consts) on `device`, copied there once: a launch then
-        copies nothing from the host."""
-        key = str(device)
-        if key not in self._copies:
-            self._copies[key] = (self.code.to(device).contiguous(),
-                                 self.consts.to(device).contiguous())
-        return self._copies[key]
 
 
 def _body(tree) -> list[ast.stmt]:
@@ -574,8 +568,10 @@ class _Lowering:
         code = torch.tensor(self.code, dtype=torch.int32)
         consts = torch.tensor(self.consts, dtype=torch.int64) \
             if self.consts else torch.zeros((0, 2), dtype=torch.int64)
-        return FoldProgram(code, consts.reshape(-1, 2), self.terms,
+        prog = FoldProgram(code, consts.reshape(-1, 2), self.terms,
                            self.n_leaves, self.row_p, self.globals)
+        S.decoded(prog, self.n_leaves)    # beyond the kernel: NotCompilable
+        return prog
 
 
 def lower_fold(udf, n_leaves: int, scalar: bool) -> FoldProgram:

@@ -41,8 +41,11 @@ class Row:
 
     @classmethod
     def from_value(cls, value: Any, columns: Optional[Sequence[str]] = None) -> "Row":
-        """Wrap a user value as a row: tuples spread into fields, everything
-        else is a single-field row (reference: Context.h parallelize)."""
+        """Wrap a user value as a row: tuples spread into fields, a Row
+        keeps its fields and its names, everything else is a single-field
+        row (reference: Context.h parallelize)."""
+        if isinstance(value, Row):
+            return cls(value.values, value.columns)
         if isinstance(value, tuple):
             return cls(value, columns)
         return cls((value,), columns)

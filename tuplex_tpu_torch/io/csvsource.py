@@ -300,7 +300,10 @@ class CSVSourceOperator(L.LogicalOperator):
     """Raw-cell CSV source: every column is Option[str] (a missing cell of
     a malformed record is None). The typed decode is the DecodeOperator
     above it, fused into the stage. `columns` (positions in the file, in
-    order) restricts the source to the columns a plan reads."""
+    order) restricts the source to the columns a plan reads. Bytes that
+    are not UTF-8 raise UnicodeDecodeError naming the file when the
+    partitions load, before any row, as a loop over the file opened as
+    UTF-8 raises (the text source decodes them as U+FFFD instead)."""
 
     def __init__(self, options, pattern: str, stat: CSVStatistic,
                  files: list[str], columns: Optional[list[int]] = None):
@@ -334,10 +337,17 @@ class CSVSourceOperator(L.LogicalOperator):
         for path in self.files:
             with VirtualFileSystem.open_read(path, "rb") as fp:
                 data = fp.read()
-            for p in csv_partitions(data, self.stat, self.options, offset,
-                                    self.keep):
-                parts.append(p)
-                offset += p.num_rows
+            try:
+                for p in csv_partitions(data, self.stat, self.options,
+                                        offset, self.keep):
+                    parts.append(p)
+                    offset += p.num_rows
+            except UnicodeDecodeError as e:
+                # a loop over the file opened as UTF-8 raises this; the
+                # reason names the file
+                raise UnicodeDecodeError(
+                    e.encoding, e.object, e.start, e.end,
+                    f"{e.reason} (CSV file {path})") from None
         return parts
 
 
@@ -464,16 +474,22 @@ def _split_records(data: bytes, delim: int, quote: int, k: int,
     records, and the header is dropped.
 
     One pass over the bytes finds the structural candidates (delimiter,
-    quote, newline, CR); the rest are running counts over their positions:
-    a byte lies inside quotes when an odd number of quotes comes before it,
-    and a record's number is the count of newlines outside quotes before
-    it."""
+    quote, newline, CR) and the bytes >= 0x80; the rest are running counts
+    over their positions: a byte lies inside quotes when an odd number of
+    quotes comes before it, and a record's number is the count of newlines
+    outside quotes before it. The bytes >= 0x80 must be UTF-8, else
+    UnicodeDecodeError: each run of them is checked, since an ASCII byte
+    ends any sequence."""
     buf = np.frombuffer(data, dtype=np.uint8)
     table = bytearray(256)
-    for c in (delim, quote, 10, 13):
+    for c in (delim, quote, 10, 13, *range(0x80, 0x100)):
         table[c] = 1
     pos = np.flatnonzero(np.frombuffer(data.translate(table), np.bool_))
     kind = buf[pos]
+    high = kind >= 0x80
+    if high.any():
+        _check_utf8(data, pos[high])
+        pos, kind = pos[~high], kind[~high]
     isq = kind == quote
     # quotes up to and including each position, mod 2; the positions it is
     # read at are no quotes, so this counts the quotes before them
@@ -526,6 +542,22 @@ def _split_records(data: bytes, delim: int, quote: int, k: int,
     good[np.flatnonzero(good)[~whole]] = False
     return (starts, ends, good, (fstart + quoted)[whole],
             (flen - 2 * quoted)[whole])
+
+
+def _check_utf8(data: bytes, hi: np.ndarray) -> None:
+    """Raise UnicodeDecodeError unless every run of the bytes at the
+    ascending positions `hi` (all >= 0x80) is UTF-8: the runs are decoded
+    together, one ASCII byte between two runs, which ends a sequence as the
+    file's own ASCII byte there does."""
+    brk = np.flatnonzero(np.diff(hi) != 1) + 1        # where runs start
+    joined = np.insert(np.frombuffer(data, np.uint8)[hi], brk, 0x20)
+    try:
+        joined.tobytes().decode("utf-8")
+    except UnicodeDecodeError as e:
+        # an error starts at a byte of a run, never at a separator
+        seps = brk + np.arange(len(brk))
+        at = int(hi[e.start - np.searchsorted(seps, e.start)])
+        raise native.invalid_utf8(data, at) from None
 
 
 def _column_leaf(padded: np.ndarray, fstart: np.ndarray, flen: np.ndarray,

@@ -131,12 +131,28 @@ def encode_rows(rows: list, kinds: list):
 
 # -- the readers ------------------------------------------------------------
 
+def invalid_utf8(data: bytes, at: int) -> UnicodeDecodeError:
+    """The error `data.decode("utf-8")` raises, given the offset `at` of
+    the first sequence it refuses: CPython's reason and end, read from a
+    window of the bytes there."""
+    try:
+        bytes(data[at:at + 4]).decode("utf-8")
+        end, reason = at + 1, "invalid UTF-8"
+    except UnicodeDecodeError as e:
+        end, reason = at + e.end, e.reason
+    return UnicodeDecodeError("utf-8", data, at, end, reason)
+
+
 def split_csv(data: bytes, delim: int, quote: int, k: int, has_header: bool):
     """(record starts, record ends, fast flag per record, field starts
     [F, k], field lengths [F, k]): the arrays of the numpy splitter
-    `io.csvsource._split_records`, with its dtypes."""
-    s, e, g, fs, fl, n_fast = _entry("split_csv")(data, delim, quote, k,
-                                                  has_header)
+    `io.csvsource._split_records`, with its dtypes. Raises
+    UnicodeDecodeError, as the splitter does, where the bytes are not
+    UTF-8."""
+    s, e, g, fs, fl, n_fast, bad = _entry("split_csv")(data, delim, quote,
+                                                       k, has_header)
+    if bad >= 0:
+        raise invalid_utf8(data, bad)
     return (np.frombuffer(s, np.int64), np.frombuffer(e, np.int64),
             np.frombuffer(g, np.bool_),
             np.frombuffer(fs, np.int64).reshape(n_fast, k),

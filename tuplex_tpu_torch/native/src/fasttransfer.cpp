@@ -22,7 +22,7 @@
 //   decode_columns(spec, n) -> list of row tuples (bare values if 1 column)
 //   encode_rows(rows, kinds) -> (cols, bad_index_list)
 //   split_csv(data, delim, quote, k, has_header)
-//                     -> (starts, ends, good, fstart, flen, n_fast)
+//                     -> (starts, ends, good, fstart, flen, n_fast, bad)
 //   split_lines(data) -> (starts, ends, odd_index_list)
 //   gather_rows(data, starts, lens, k, pos|None, m)
 //                     -> [(mat, lens_i32, width)] * k
@@ -674,6 +674,29 @@ static PyObject *bytearray_of(const V &vec) {
       static_cast<Py_ssize_t>(vec.size() * sizeof(typename V::value_type)));
 }
 
+// Length of the UTF-8 sequence at p (rem bytes left) as CPython's strict
+// decoder accepts it, or 0 where it would not (overlong forms, surrogates,
+// beyond U+10FFFF, truncated or bad continuation bytes).
+static Py_ssize_t utf8_seq(const unsigned char *p, Py_ssize_t rem) {
+  const unsigned char c = p[0];
+  if (c < 0x80) return 1;
+  if (c < 0xC2) return 0;
+  if (c < 0xE0) return rem >= 2 && (p[1] & 0xC0) == 0x80 ? 2 : 0;
+  if (c < 0xF0) {
+    if (rem < 3 || (p[2] & 0xC0) != 0x80) return 0;
+    const unsigned char lo = c == 0xE0 ? 0xA0 : 0x80;
+    const unsigned char hi = c == 0xED ? 0x9F : 0xBF;
+    return p[1] >= lo && p[1] <= hi ? 3 : 0;
+  }
+  if (c < 0xF5) {
+    if (rem < 4 || (p[2] & 0xC0) != 0x80 || (p[3] & 0xC0) != 0x80) return 0;
+    const unsigned char lo = c == 0xF0 ? 0x90 : 0x80;
+    const unsigned char hi = c == 0xF4 ? 0x8F : 0xBF;
+    return p[1] >= lo && p[1] <= hi ? 4 : 0;
+  }
+  return 0;
+}
+
 // CSV records and fields in one pass over the file's bytes. The same five
 // arrays as the port's numpy splitter (io/csvsource.py _split_records):
 // record starts and ends (terminators excluded, blank lines and the header
@@ -683,7 +706,9 @@ static PyObject *bytearray_of(const V &vec) {
 // inside quotes, no CR other than its terminator's, and every quote byte
 // in it is one of a field's two enclosing quotes. Each line starts outside
 // quotes (a newline ends a line only outside them), so a record's quote
-// parity starts at zero.
+// parity starts at zero. The same pass checks that the bytes are UTF-8 as
+// CPython's strict decoder accepts it: `bad` is the offset of the first
+// sequence it would refuse, -1 if none.
 static PyObject *split_csv(PyObject *, PyObject *args) {
   Py_buffer data;
   int delim, quote, has_header;
@@ -701,8 +726,9 @@ static PyObject *split_csv(PyObject *, PyObject *args) {
   const unsigned char *b = static_cast<const unsigned char *>(data.buf);
   const Py_ssize_t n = data.len;
   const unsigned char q = static_cast<unsigned char>(quote);
-  // byte classes: 1 delimiter, 2 quote, 3 newline, 4 CR
+  // byte classes: 1 delimiter, 2 quote, 3 newline, 4 CR, 5 non-ASCII
   unsigned char cls[256] = {0};
+  for (int c = 0x80; c < 256; c++) cls[c] = 5;
   cls[10] = 3;
   cls[13] = 4;
   cls[quote] = 2;
@@ -714,7 +740,9 @@ static PyObject *split_csv(PyObject *, PyObject *args) {
         _mm_cmpeq_epi8(v, _mm_set1_epi8(static_cast<char>(quote))));
     const __m128i c = _mm_or_si128(_mm_cmpeq_epi8(v, _mm_set1_epi8(10)),
                                    _mm_cmpeq_epi8(v, _mm_set1_epi8(13)));
-    return static_cast<unsigned>(_mm_movemask_epi8(_mm_or_si128(a, c)));
+    // a match is 0xFF, and a byte >= 0x80 has its high bit set already
+    return static_cast<unsigned>(
+        _mm_movemask_epi8(_mm_or_si128(_mm_or_si128(a, c), v)));
 #else
     (void)v;
     return 0;
@@ -746,7 +774,7 @@ static PyObject *split_csv(PyObject *, PyObject *args) {
   int64_t *fstart = reinterpret_cast<int64_t *>(PyByteArray_AS_STRING(out[3]));
   int64_t *flen = reinterpret_cast<int64_t *>(PyByteArray_AS_STRING(out[4]));
   std::vector<int64_t> d;
-  Py_ssize_t n_rec = 0, n_fast = 0;
+  Py_ssize_t n_rec = 0, n_fast = 0, bad = -1;
   Py_BEGIN_ALLOW_THREADS;
   bool header_pending = has_header != 0;
   Py_ssize_t s = 0;
@@ -772,8 +800,16 @@ static PyObject *split_csv(PyObject *, PyObject *args) {
           }
           n_stray++;
           break;
-        default:
+        case 4:
           n_stray++;
+          break;
+        default: {
+          // a sequence's continuation bytes are >= 0x80: none is skipped
+          // over a structural byte
+          const Py_ssize_t len = utf8_seq(b + i, n - i);
+          if (len == 0 && bad < 0) bad = i;
+          if (len > 1) i += len - 1;
+        }
       }
       i++;
     }
@@ -817,31 +853,8 @@ static PyObject *split_csv(PyObject *, PyObject *args) {
       return nullptr;
     }
   }
-  return Py_BuildValue("(NNNNNn)", out[0], out[1], out[2], out[3], out[4],
-                       n_fast);
-}
-
-// Length of the UTF-8 sequence at p (rem bytes left) as CPython's strict
-// decoder accepts it, or 0 where it would not (overlong forms, surrogates,
-// beyond U+10FFFF, truncated or bad continuation bytes).
-static Py_ssize_t utf8_seq(const unsigned char *p, Py_ssize_t rem) {
-  const unsigned char c = p[0];
-  if (c < 0x80) return 1;
-  if (c < 0xC2) return 0;
-  if (c < 0xE0) return rem >= 2 && (p[1] & 0xC0) == 0x80 ? 2 : 0;
-  if (c < 0xF0) {
-    if (rem < 3 || (p[2] & 0xC0) != 0x80) return 0;
-    const unsigned char lo = c == 0xE0 ? 0xA0 : 0x80;
-    const unsigned char hi = c == 0xED ? 0x9F : 0xBF;
-    return p[1] >= lo && p[1] <= hi ? 3 : 0;
-  }
-  if (c < 0xF5) {
-    if (rem < 4 || (p[2] & 0xC0) != 0x80 || (p[3] & 0xC0) != 0x80) return 0;
-    const unsigned char lo = c == 0xF0 ? 0x90 : 0x80;
-    const unsigned char hi = c == 0xF4 ? 0x8F : 0xBF;
-    return p[1] >= lo && p[1] <= hi ? 4 : 0;
-  }
-  return 0;
+  return Py_BuildValue("(NNNNNnn)", out[0], out[1], out[2], out[3], out[4],
+                       n_fast, bad);
 }
 
 // Pieces of the file between \n, \r and \r\n terminators (each piece's
