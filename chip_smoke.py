@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a nonzero exit:
+Phases, in order; any failure ends the run with a nonzero exit. The
+script's elapsed time is printed at the end of each phase:
 
   1. the card's name and power limit;
-  2. build the kernels (csrc/nfa_scan.cu, csrc/join_probe.cu,
-     csrc/seg_fold.cu) with nvcc and, at the same time, the native host
+  2. build the kernels (csrc/nfa_scan.cu with its two entry points,
+     csrc/join_probe.cu, csrc/seg_fold.cu) with nvcc and, at the same time, the native host
      module (native/src/fasttransfer.cpp) with g++;
   3. the kernel against its plain torch version on the card: the pattern
      x string matrix of the reference package's NFA tests, seeded random
@@ -15,7 +16,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
      the kernel's block), and the log-grep batch at the shape the main path
      stages; results must match exactly. Each timed input's kernel time is
      printed beside the time PERF.md records for the kernel this one
-     replaced;
+     replaced. Then the leftmost-start kernel (nfa_start, the second entry
+     point of csrc/nfa_scan.cu) against its plain version
+     (NFARegex.match_start_plain), exactly in matched and start: on the
+     matrix (and re.search(...).start()), the random matrices with
+     patterns of 2 to 32 positions (the status grep's second pass and a
+     leading class run among them) and the edge inputs; timed on the
+     random matrix;
   4. the dual-mode smoke pipeline through Context() on the card (its None
      row leaves through the exact exit);
   5. the log grep over 1,891,715 generated Apache log lines (seed 17, one
@@ -24,6 +31,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
      equal), then the pipeline through Context() on the card, checked
      against a plain Python loop, then its results decoded to Python both
      ways (equal rows);
+ 5b. the weblogs pipelines over the same file: the anchored engine
+     (ops/regex.py, torch ops) on each staged partition, its launches and
+     device time on the first by torch.profiler, and the lines it marks
+     suspect; then the strip and regex variants (models/logs.py
+     build_pipeline) and the status grep (build_status_grep) through
+     Context() on the card, each equal to its plain loop in rows, order
+     and types, with its wall, lines/s, the loop's time, its resolve tiers
+     and its launches of nfa_scan, nfa_start and the engine. The strip
+     variant and the status grep may interpret only the non-ASCII lines,
+     the regex variant those and the suspect lines; the status grep must
+     launch both kernels; the regex variant runs once more under
+     torch.profiler for the card's busy time and idle share. The start
+     kernel is then held against its plain version on the largest input
+     the status grep gave it and timed;
   6. Zillow Z1 over 1,000,000 generated rows (seed 42, about 148 MB of
      CSV): the CSV source timed apart (read; split and byte matrices with
      the native module and with the numpy path, whose arrays and
@@ -149,6 +170,8 @@ from tuplex_tpu_torch.io import csvsource                 # noqa: E402
 from tuplex_tpu_torch.models import (flights, logs,       # noqa: E402
                                      nyc311, tpch, widened, zillow)
 from tuplex_tpu_torch.ops import join as J                # noqa: E402
+from tuplex_tpu_torch.ops import regex as RX              # noqa: E402
+from tuplex_tpu_torch.ops import strings as S             # noqa: E402
 from tuplex_tpu_torch.ops import join_cuda, nfa_cuda      # noqa: E402
 from tuplex_tpu_torch.ops import segfold as SF            # noqa: E402
 from tuplex_tpu_torch.ops import segfold_cuda             # noqa: E402
@@ -157,7 +180,8 @@ from tuplex_tpu_torch.plan import aggregates as A         # noqa: E402
 from tuplex_tpu_torch.plan.physical import plan_stages    # noqa: E402
 from tuplex_tpu_torch.runtime import columns as C         # noqa: E402
 from tuplex_tpu_torch.runtime import xferstats            # noqa: E402
-from tuplex_tpu_torch.runtime.devprof import device_busy  # noqa: E402
+from tuplex_tpu_torch.runtime.devprof import (           # noqa: E402
+    device_busy, device_intervals, union_us)
 from tuplex_tpu_torch.utils.reflection import get_udf_source  # noqa: E402
 
 LOG_LINES = 1_891_715       # NASA-HTTP, July 1995: one month of requests
@@ -197,6 +221,15 @@ RANDOM_PATTERNS = ["GET|POST", logs.ERROR_STATUS, "^a.*b$", "b$", "^$",
                    "a*b", "GET /" + "[a-z]" * 57 + "(x|y)", "[ab]" * 64]
 # the edge inputs: 1, 2 and 8 follow chunks, with and without '$'
 EDGE_PATTERNS = [logs.ERROR_STATUS, "b$", "^a.*b$", "[ab]" * 64]
+# the leftmost-start kernel (nfa_start): the matrix's patterns it takes
+# (not nullable, 1..32 positions), the patterns over the random matrices
+# (a leading class run among them) and over the edge inputs (1 to 4 follow
+# chunks, with and without '$')
+START_MATRIX_PATTERNS = [p for p in MATRIX_PATTERNS
+                         if p not in ("^$", "a*b")] + ["a*b"]
+START_RANDOM_PATTERNS = [logs.STATUS_GROUPS, r"\S+x", "GET|POST", "a+b$",
+                         "[ab]" * 32]
+START_EDGE_PATTERNS = [logs.STATUS_GROUPS, r"\S+x", "b$", "[ab]" * 32]
 # ms of the one-thread-per-row kernel this one replaced, as PERF.md records
 # it (H100 80GB HBM3, 700 W): log-grep batch, random rows with 9 and 64
 # positions
@@ -317,6 +350,190 @@ def check_kernel(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
     if err:
         raise AssertionError(f"kernel != plain version on {what}")
     return err
+
+
+def check_start(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
+    """The start kernel against match_start_plain on the same tensors;
+    returns the largest absolute difference of matched and start (0 =
+    identical)."""
+    m, st = rx.match_start(b, l)
+    pm, pst = rx.match_start_plain(b, l)
+    torch.cuda.synchronize()
+    err = max(int((m.to(torch.int32) - pm.to(torch.int32)).abs().max()),
+              int((st - pst).abs().max()))
+    if err:
+        raise AssertionError(f"start kernel != plain version on {what}")
+    return err
+
+
+def start_bound_ms(l: torch.Tensor, width: int) -> float:
+    """The start scan's bytes: each row's in-length bytes read once, 4 B
+    of length in and 5 B out (matched, start) a row, at the memory rate."""
+    need = int(torch.clamp(l, 0, width).to(torch.int64).sum())
+    return (need + 9 * l.shape[0]) / HBM_BYTES_PER_S * 1e3
+
+
+def start_kernel_phase(mb, ml, rb, rl, edges) -> int:
+    """Phase 3's start-kernel half: the leftmost-start kernel against its
+    plain version (and re.search(...).start() on the matrix) on the
+    matrix, the random matrices and the edge inputs; timed on the random
+    matrix. Returns the largest difference."""
+    max_err = 0
+    for pat in START_MATRIX_PATTERNS:
+        rx = compile_nfa(pat)
+        m, st = rx.match_start(mb, ml)
+        want = [re.search(pat, x) for x in MATRIX_STRINGS]
+        if m.cpu().tolist() != [w is not None for w in want] or \
+                st.cpu().tolist() != [w.start() if w else 0 for w in want]:
+            raise AssertionError(f"start of {pat!r} != re")
+        max_err = max(max_err, check_start(rx, mb, ml, repr(pat)))
+    for pat in START_RANDOM_PATTERNS:
+        max_err = max(max_err, check_start(compile_nfa(pat), rb, rl,
+                                           repr(pat)))
+    for pat in START_EDGE_PATTERNS:
+        rx = compile_nfa(pat)
+        for what, b, l in edges:
+            max_err = max(max_err, check_start(rx, b, l,
+                                               f"{pat!r} on {what}"))
+    print(f"start kernel == plain on {len(START_MATRIX_PATTERNS)} x "
+          f"{len(MATRIX_STRINGS)} matrix (== re's start), "
+          f"{len(START_RANDOM_PATTERNS)} patterns over {RANDOM_ROWS} x "
+          f"{RANDOM_WIDTH} random rows and {len(START_EDGE_PATTERNS)} "
+          f"patterns over the edge inputs")
+    for pat in (logs.STATUS_GROUPS, r"\S+x", "[ab]" * 32):
+        rx = compile_nfa(pat)
+        ms, call_ms = kernel_device_ms(lambda: rx.match_start(rb, rl), 20)
+        plain_ms = cuda_ms(lambda: rx.match_start_plain(rb, rl), 1)
+        print(f"nfa_start at [{RANDOM_ROWS}, {RANDOM_WIDTH}] random rows, "
+              f"{rx.n_pos} positions ({pat[:24]!r}): kernel {ms:.4f} ms "
+              f"({call_ms:.4f} ms of host time per wrapper call), plain "
+              f"{plain_ms:.2f} ms, bound "
+              f"{start_bound_ms(rl, RANDOM_WIDTH):.4f} ms")
+    return max_err
+
+
+@contextlib.contextmanager
+def recording(module, attr: str, inputs: list, pick):
+    """Records pick(*args) of every call the main path makes to a kernel's
+    wrapper, module.attr, while the context is open."""
+    kernel = getattr(module, attr)
+
+    def wrapper(*args, **kw):
+        inputs.append(pick(*args, **kw))
+        return kernel(*args, **kw)
+
+    setattr(module, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, attr, kernel)
+
+
+def engine_per_partition(parts, dev) -> int:
+    """The anchored engine (ops/regex.py, torch ops) on the regex
+    variant's staged partitions: its torch launches and device ms on the
+    first, by torch.profiler, and the rows it marks suspect and unmatched
+    over the file's ASCII lines (the regex variant may send those to the
+    interpreter). Returns that count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rx = RX.compile_regex(logs.WEBLOGS_REGEX)
+    suspects = 0
+    for i, part in enumerate(parts):
+        batch = C.stage_partition(part, dev)
+        b, l = batch.arrays["0#bytes"], batch.arrays["0#len"]
+        live = batch.arrays["#rowvalid"] & ~S.non_ascii_rows(b, l)
+        if i == 0:
+            rx.match(b, l)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                rx.match(b, l)
+                torch.cuda.synchronize()
+            spans = device_intervals(prof)
+            ms = cuda_ms(lambda: rx.match(b, l), 5)
+            print(f"anchored engine on a partition [{b.shape[0]}, "
+                  f"{b.shape[1]}] ({len(rx.steps)} steps, "
+                  f"{rx.n_groups} groups): {len(spans)} device launches, "
+                  f"device busy {union_us(spans) / 1e3:.3f} ms "
+                  f"(torch.profiler), {ms:.3f} ms a call by CUDA events "
+                  f"(host launch time included)")
+        m, sus, _, _ = rx.match(b, l)
+        suspects += int((sus & ~m & live).sum())
+    return suspects
+
+
+def weblogs_phase(path: str, dev) -> tuple[int, int, dict]:
+    """The weblogs pipelines (strip and regex variants) and the status grep
+    over phase 5's file through Context() on the card, each against its
+    plain Python loop (rows, order, types), with their interpreter rows
+    held to the non-ASCII lines (plus the engine's suspects for the regex
+    variant). Then the start kernel against its plain version on the
+    largest input the status grep gave it, timed. Returns (start-kernel
+    launches in the status grep, largest difference, its numbers)."""
+    n_non_ascii = LOG_LINES // NON_ASCII_EVERY
+    src = Context().text(path)._op
+    parts = C.harmonize_partitions(src.load_partitions())
+    suspects = engine_per_partition(parts, dev)
+    del parts
+    starts: list = []
+    start_launches = 0
+    jobs = (("weblogs strip", lambda ds: logs.build_pipeline(ds, "strip"),
+             lambda: logs.run_reference_python(path, "strip"), n_non_ascii),
+            ("weblogs regex", lambda ds: logs.build_pipeline(ds, "regex"),
+             lambda: logs.run_reference_python(path, "regex"),
+             n_non_ascii + suspects),
+            ("status grep", logs.build_status_grep,
+             lambda: logs.run_status_grep_reference(path), n_non_ascii))
+    for what, build, loop, limit in jobs:
+        want, loop_s = timed(loop)
+        ctx = Context()
+        nfa_cuda.launches = nfa_cuda.start_launches = RX.calls = 0
+        with recording(nfa_cuda, "match_start_cuda", starts,
+                       lambda tables, buf, b, l: (b, l)):
+            t0 = time.perf_counter()
+            got = build(ctx.text(path)).collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = (nfa_cuda.launches, nfa_cuda.start_launches, RX.calls)
+        if got != want or [tuple(map(type, r)) for r in got] != \
+                [tuple(map(type, r)) for r in want]:
+            raise AssertionError(f"{what}: {len(got)} rows != the loop's "
+                                 f"{len(want)} (or their order or types)")
+        m = ctx.metrics
+        if m.interpreterRows() > limit:
+            raise AssertionError(f"{what}: {m.interpreterRows()} interpreter "
+                                 f"rows, more than {limit}")
+        if what == "status grep":
+            start_launches = counts[1]
+            if min(counts) <= 0:
+                raise AssertionError(f"status grep: launches {counts}")
+        print(f"{what}: {LOG_LINES} lines -> {len(got)} rows in {wall:.3f} s "
+              f"({LOG_LINES / wall:.0f} lines/s; python loop {loop_s:.3f} "
+              f"s), {tier_line(m)}, tier mix {m.resolveTierMix()}, "
+              f"interpreter limit {limit}; fast path "
+              f"{m.fastPathWallTime():.3f} s, backend "
+              f"{m.totalWallTime():.3f} s; launches: nfa_scan {counts[0]}, "
+              f"nfa_start {counts[1]}, anchored engine calls {counts[2]}")
+        if what == "weblogs regex":   # the anchored engine's job
+            pwall, busy, _ = device_busy(
+                lambda: build(Context().text(path)).collect())
+            print(f"{what} under torch.profiler: {pwall:.3f} s, device "
+                  f"busy {busy:.4f} s, idle share {1 - busy / pwall:.4f}")
+    print(f"weblogs: the port's engine marks {suspects} ASCII lines "
+          f"suspect and unmatched")
+    b, l = max(starts, key=lambda bl: bl[0].shape[0])
+    del starts
+    rx = compile_nfa(logs.STATUS_GROUPS)
+    err = check_start(rx, b, l, "the status grep's largest input")
+    ms, call_ms = kernel_device_ms(lambda: rx.match_start(b, l), 50)
+    plain_ms = cuda_ms(lambda: rx.match_start_plain(b, l), 3)
+    bound = start_bound_ms(l, b.shape[1])
+    print(f"nfa_start at the status grep's largest input [{b.shape[0]}, "
+          f"{b.shape[1]}]: kernel {ms:.4f} ms ({call_ms:.4f} ms of host "
+          f"time per wrapper call), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms; kernel == plain")
+    return start_launches, err, {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound}
 
 
 @contextlib.contextmanager
@@ -923,23 +1140,9 @@ def time_probe(words: torch.Tensor, build: torch.Tensor, what: str):
 
 
 def recording_probes(inputs: list):
-    """A context that records every (words, index) the join hands the
-    kernel wrapper."""
-    kernel = join_cuda.probe
-
-    @contextlib.contextmanager
-    def ctx():
-        def recording(words, index, **kw):
-            inputs.append((words, index.words))
-            return kernel(words, index, **kw)
-
-        join_cuda.probe = recording
-        try:
-            yield
-        finally:
-            join_cuda.probe = kernel
-
-    return ctx()
+    """Records every (words, build words) the join hands the kernel."""
+    return recording(join_cuda, "probe", inputs,
+                     lambda words, index, **kw: (words, index.words))
 
 
 def flights_phase(tmp: str):
@@ -1234,23 +1437,10 @@ def fold_kernel(prog, inputs, what: str, op_ns: float,
 
 
 def recording_folds(inputs: list):
-    """A context that records every input the aggregate stage hands the
-    general fold's kernel wrapper."""
-    kernel = segfold_cuda.seg_fold
-
-    @contextlib.contextmanager
-    def ctx():
-        def recording(prog, *args):
-            inputs.append((prog, args))
-            return kernel(prog, *args)
-
-        segfold_cuda.seg_fold = recording
-        try:
-            yield
-        finally:
-            segfold_cuda.seg_fold = kernel
-
-    return ctx()
+    """Records every (program, arguments) the aggregate stage hands the
+    general fold's kernel."""
+    return recording(segfold_cuda, "seg_fold", inputs,
+                     lambda prog, *args: (prog, args))
 
 
 def fold_phase(path: str, dirty: str, dev) -> tuple[int, dict]:
@@ -1342,6 +1532,10 @@ def fold_phase(path: str, dirty: str, dev) -> tuple[int, dict]:
 
 def main() -> None:
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     # 1 --------------------------------------------------------------
     card = card_line()
@@ -1361,6 +1555,8 @@ def main() -> None:
     if mod is None:
         raise AssertionError("native module: no g++ on PATH")
     print(f"native module: {mod.__file__}")
+
+    done("2")
 
     # 3 --------------------------------------------------------------
     max_err = 0
@@ -1389,6 +1585,7 @@ def main() -> None:
         for what, b, l in edges:
             max_err = max(max_err, check_kernel(rx, b, l,
                                                 f"{pat!r} on {what}"))
+    max_start_err = start_kernel_phase(mb, ml, rb, rl, edges)
     del edges
     print(f"kernel == plain on {len(MATRIX_PATTERNS)} x "
           f"{len(MATRIX_STRINGS)} matrix, {len(RANDOM_PATTERNS)} "
@@ -1436,6 +1633,8 @@ def main() -> None:
           f"all N*W bytes: {full_ms:.4f} ms)")
     del batch, gb, gl, rb, rl
 
+    done("3")
+
     # 4 --------------------------------------------------------------
     total_calls = {k: 0 for k in native.calls}
     nfa_cuda.launches = 0
@@ -1455,6 +1654,8 @@ def main() -> None:
     print(f"smoke: {got}, {tier_line(m)}, exceptions "
           f"{ds.exception_counts()}, NFA launches {nfa_cuda.launches}, "
           f"native calls {calls}")
+
+    done("4")
 
     # 5 --------------------------------------------------------------
     parts, nat_s = timed(src.load_partitions)
@@ -1500,15 +1701,27 @@ def main() -> None:
         lambda c: logs.build_grep(c.text(path)))
     print(f"log grep results to Python ({n_rows} rows): native "
           f"{nat_s:.3f} s, Python path {py_s:.3f} s; rows equal")
+
+    done("5")
+
+    # 5b -------------------------------------------------------------
+    start_launches, err, start_nums = weblogs_phase(path, dev)
+    max_start_err = max(max_start_err, err)
     os.remove(path)
+
+    done("5b")
 
     # 6 --------------------------------------------------------------
     zillow_phase(tmp, total_calls)
+
+    done("6")
 
     # 7 --------------------------------------------------------------
     tpch_tmp = tmp
     lineitem, dirty = tpch_phase(tmp, total_calls)
     nyc311_phase(tmp)
+
+    done("7")
 
     # 8 --------------------------------------------------------------
     max_probe_err = 0
@@ -1519,6 +1732,8 @@ def main() -> None:
         err, _ = int_probe_phase(np.random.default_rng(u + 1), u, dev)
         max_probe_err = max(max_probe_err, err)
 
+    done("8")
+
     # 9 --------------------------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     flights_launches, probe_inputs = flights_phase(tmp)
@@ -1528,8 +1743,12 @@ def main() -> None:
     max_probe_err = max(max_probe_err, err)
     del probe_inputs, words, build
 
+    done("9")
+
     # 10 -------------------------------------------------------------
     q19_launches, probe_inputs = q19_phase(tmp)
+
+    done("10")
 
     # 11 -------------------------------------------------------------
     widened_phase(tmp)
@@ -1541,11 +1760,15 @@ def main() -> None:
     probe_launches = flights_launches + q19_launches
     del probe_inputs, words, build
 
+    done("11")
+
     # 12 -------------------------------------------------------------
     fold_launches, fold_nums = fold_phase(lineitem, dirty, dev)
     for f in (lineitem, dirty):
         os.remove(f)
     os.rmdir(tpch_tmp)
+
+    done("12")
 
     # 13 -------------------------------------------------------------
     zero_native_calls()
@@ -1558,6 +1781,7 @@ def main() -> None:
     print(f"native module == Python path on every entry point; calls in "
           f"this run {total_calls}")
 
+    done("13")
     print(json.dumps({"kernels": [{
         "name": "nfa_scan", "route": "cuda",
         "source": "tuplex_tpu_torch/csrc/nfa_scan.cu",
@@ -1565,6 +1789,11 @@ def main() -> None:
         "launches": launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None}, {
+        "name": "nfa_start", "route": "cuda",
+        "source": "tuplex_tpu_torch/csrc/nfa_scan.cu",
+        "replaces": "tuplex_tpu/ops/nfa.py:328",
+        "launches": start_launches, "max_abs_err": max_start_err,
+        **start_nums, "bound_by": "bytes", "library_ms": None}, {
         "name": "join_probe", "route": "cuda",
         "source": "tuplex_tpu_torch/csrc/join_probe.cu",
         "replaces": "tuplex_tpu/exec/joinexec.py:629",

@@ -1,8 +1,8 @@
-"""tuplex_tpu_torch on the card: the CUDA NFA scan, the CUDA join probe
-and the CUDA general fold against their plain versions, the string
-kernels and the aggregate reductions on CUDA against the same ops on the
-CPU, and the pipelines
-(smoke, log grep, Zillow Z1, TPC-H Q6, Q1 and Q19, NYC 311, flights)
+"""tuplex_tpu_torch on the card: the CUDA NFA scan and start scan, the
+CUDA join probe and the CUDA general fold against their plain versions,
+the string kernels and the aggregate reductions on CUDA against the same
+ops on the CPU, and the pipelines (smoke, log grep, Zillow Z1, TPC-H Q6,
+Q1 and Q19, NYC 311, flights, the weblogs variants and the status grep)
 through Context() on CUDA.
 
 Every test here is marked `cuda` and skips without a GPU. This file
@@ -11,10 +11,10 @@ imports neither jax nor tuplex_tpu, so it runs on a GPU host without them:
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Oracles: the plain versions (`NFARegex.match_bitmask`,
-`ops/join.py:lower_bound_plain`, `ops/segfold.py:seg_fold_plain`) on the
-same CUDA tensors, Python `re`, the CPU run of each string kernel (itself held
-against the reference package by tests/test_torch_strings.py), and a
-plain Python loop. Tolerance: exact.
+`NFARegex.match_start_plain`, `ops/join.py:lower_bound_plain`,
+`ops/segfold.py:seg_fold_plain`) on the same CUDA tensors, Python `re`,
+the CPU run of each string kernel (itself held against the reference
+package by tests/test_torch_strings.py), and a plain Python loop. Tolerance: exact.
 """
 
 import ast
@@ -131,6 +131,107 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         nfa_cuda.match_cuda(t, buf, b, l.cpu())
     with pytest.raises(ValueError):
         nfa_cuda.match_cuda(t, buf[:-1], b, l)
+
+
+START_PATTERNS = [logs.STATUS_GROUPS, r"\S+x", "a+b$", "GET|POST",
+                  "^a.*b$", "[ab]" * 32, "b\n?$", "x$", logs.ERROR_LINE]
+
+
+def _check_start(rx, pattern, b, l):
+    """The start kernel on CUDA tensors b, l against match_start_plain on
+    the same tensors and against re.search(...).start() on their rows;
+    one launch per call."""
+    before = nfa_cuda.start_launches
+    m, s = rx.match_start(b, l)
+    assert nfa_cuda.start_launches == before + 1
+    pm, ps = rx.match_start_plain(b, l)
+    assert torch.equal(m, pm) and torch.equal(s, ps)
+    mat, lens = b.cpu().numpy(), l.cpu().numpy()
+    rows = [bytes(r[:k]) for r, k in zip(mat, lens)]
+    py = [re.search(pattern.encode(), r) for r in rows]
+    assert m.tolist() == [x is not None for x in py]
+    assert s.tolist() == [x.start() if x else 0 for x in py]
+
+
+# 8-byte rows (4-byte loads), bytes, 16-byte loads, eight column chunks;
+# rows of length 0, trailing newlines, a leading class run (\S+x)
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [72, 75, 128, 1000])
+@pytest.mark.parametrize("pattern", START_PATTERNS)
+def test_start_kernel_matches_plain_and_re(pattern, w, cuda_device):
+    mat, lens = _random_batch(17, 1001, w)
+    _check_start(port_nfa.compile_nfa(pattern), pattern,
+                 torch.from_numpy(mat).to(cuda_device),
+                 torch.from_numpy(lens).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", START_PATTERNS)
+def test_start_kernel_block_and_alignment_edges(pattern, cuda_device):
+    """Row counts around the block (1, R-1, R, R+1), rows whose match ends
+    at the length or before a final newline, and bases that are not
+    16-byte aligned (byte loads and 4-byte loads)."""
+    rx = port_nfa.compile_nfa(pattern)
+    R = nfa_cuda.rows_per_block()
+    for n in (1, R - 1, R, R + 1):
+        mat, lens = _random_batch(23 + n, n, 96)
+        _check_start(rx, pattern, torch.from_numpy(mat).to(cuda_device),
+                     torch.from_numpy(lens).to(cuda_device))
+    ends = ["", "\n", "x", "ab", "ab\n", "b\n\n", 'a" 404 - ', '" 500 x\n',
+            "zzzzx", "aaab\n", "GET", "b"]
+    leaf = C.encode_str_leaf(ends, False)
+    _check_start(rx, pattern,
+                 torch.from_numpy(np.ascontiguousarray(leaf.bytes)).to(
+                     cuda_device),
+                 torch.from_numpy(leaf.lengths).to(cuda_device))
+    mat, lens = _random_batch(5, 301, 75)
+    b = torch.from_numpy(mat).to(cuda_device)[1:]
+    assert b.is_contiguous() and b.data_ptr() % 16 != 0
+    _check_start(rx, pattern, b, torch.from_numpy(lens[1:]).to(cuda_device))
+    mat, lens = _random_batch(6, 300, 128)
+    flat = torch.zeros(4 + mat.size, dtype=torch.uint8, device=cuda_device)
+    flat[4:] = torch.from_numpy(mat.ravel()).to(cuda_device)
+    b = flat[4:].view(300, 128)
+    assert b.data_ptr() % 16 == 4
+    _check_start(rx, pattern, b, torch.from_numpy(lens).to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_start_wrapper_rejects_bad_inputs(cuda_device):
+    t = port_nfa.compile_nfa("abc").tables
+    buf = torch.from_numpy(nfa_cuda.pack_start_tables(t).view(np.int64)).to(
+        cuda_device)
+    b = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
+    l = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        nfa_cuda.match_start_cuda(t, buf, b, l.to(torch.int64))
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(t, buf, b.t(), l)
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(t, buf, b, l.cpu())
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(t, buf[:-1], b, l)
+    big = port_nfa.compile_nfa("[ab]" * 33).tables
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(big, buf, b, l)
+
+
+@pytest.mark.cuda
+def test_weblogs_and_status_grep_on_cuda(tmp_path, cuda_device):
+    path = str(tmp_path / "access.log")
+    logs.generate_log(path, 5000, seed=17, non_ascii_every=1000)
+    for mode, limit in (("strip", 5), ("regex", 5 + 157)):
+        ctx = tuplex_tpu_torch.Context()
+        assert logs.build_pipeline(ctx.text(path), mode).collect() == \
+            logs.run_reference_python(path, mode)
+        assert ctx.metrics.interpreterRows() <= limit
+    ctx = tuplex_tpu_torch.Context()
+    before = (nfa_cuda.launches, nfa_cuda.start_launches)
+    assert logs.build_status_grep(ctx.text(path)).collect() == \
+        logs.run_status_grep_reference(path)
+    assert nfa_cuda.launches > before[0]
+    assert nfa_cuda.start_launches > before[1]
+    assert ctx.metrics.interpreterRows() == 5
 
 
 @pytest.mark.cuda

@@ -152,8 +152,10 @@ def test_not_compilable_interprets_like_reference(kind):
         def build(ds):
             return ds.map(lambda s: s.title())
     else:
+        # the anchored engine compiles `re.search("^GET", s)` itself
+        # (tests/test_torch_regex.py); a match's .start() stays outside
         def build(ds):
-            return ds.filter(lambda s: re.search("^GET", s))
+            return ds.filter(lambda s: re.search("^GET", s).start() == 0)
     ctx = _port()
     got = build(ctx.parallelize(rows)).collect()
     assert got == build(tuplex_tpu.Context().parallelize(rows)).collect()

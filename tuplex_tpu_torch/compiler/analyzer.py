@@ -10,10 +10,11 @@ One AST pass per UDF gives a `UDFReport`:
     or closure mutation).
   * the exception-site inventory: AST nodes mapped to the ExceptionCode
     the compiled path can raise there (division -> ZERODIVISIONERROR,
-    `int(s)` -> VALUEERROR, a method on a possibly-None value ->
-    ATTRIBUTEERROR, arithmetic and string indexing ->
-    NORMALCASEVIOLATION, ...), so the physical plan knows a stage's
-    possible codes without sampling
+    `int(s)` -> VALUEERROR, a method on a possibly-None value (a
+    match's `.group` included) -> ATTRIBUTEERROR, `re.search` ->
+    TYPEERROR and PYTHON_FALLBACK (the regex engine's suspect rows),
+    arithmetic and string indexing -> NORMALCASEVIOLATION, ...), so the
+    physical plan knows a stage's possible codes without sampling
     (`TransformStage.possible_exception_codes`). It over-approximates: a
     code it misses still routes its row, under `ResolveBuffers.other`.
   * `mutates_globals`: the UDF writes a global or a closure cell, so the
@@ -231,6 +232,14 @@ class _UdfVisitor(ast.NodeVisitor):
                 self._guard(node, "len() of a non-ASCII string")
         if isinstance(fn, ast.Attribute):
             self._guard(node, f".{fn.attr}() on a non-ASCII string")
+        if isinstance(fn, ast.Attribute) and isinstance(fn.value, ast.Name) \
+                and self.module_names.get(fn.value.id) == "re" \
+                and fn.attr in ("search", "match"):
+            self._exc(node, f"re.{fn.attr} of a possibly-None string",
+                      ExceptionCode.TYPEERROR)
+            self._exc(node, f"re.{fn.attr} rows the compiled regex engine "
+                      "leaves to the interpreter",
+                      ExceptionCode.PYTHON_FALLBACK)
         if isinstance(fn, ast.Attribute) and isinstance(fn.value, ast.Name) \
                 and self.module_names.get(fn.value.id) in _IO_MODULES:
             # by the module's real name, not its local binding

@@ -24,10 +24,12 @@ named-row indexing; string indexing and slicing, `len`, concatenation,
 `'%0Nd' % i`, `'{}'`/`'{:0N}'`/`'{:N}'` with `str.format`, `int()`,
 `float()`; `str.find`/`rfind`/`index`/`rindex` with a constant needle,
 `lower`/`upper`, `replace` with constant arguments, `strip`/`lstrip`/
-`rstrip`, `string.capwords`; `re.search` /
-`re.match` where the reference takes its NFA (boolean-only) path; filter
-truthiness. Torch runs eagerly, so there is no scan or fusion barrier here:
-each expression launches its ops as it is evaluated. Branch speculation
+`rstrip`, `string.capwords`; `re.search` / `re.match` (the anchored
+engine with capture groups, the NFA's truth value and its two-pass
+groups) and a match's `.group(k)`; dict literals with string-constant
+keys (named rows); filter truthiness. Torch runs eagerly, so there is no
+scan or fusion barrier here: each expression launches its ops as it is
+evaluated. Branch speculation
 (the reference's `branchprof`) is not ported: both arms always run.
 """
 
@@ -256,6 +258,18 @@ class Frame:
     def eval_Tuple(self, node: ast.Tuple) -> CV:
         return tuple_cv([self.eval(e) for e in node.elts])
 
+    def eval_Dict(self, node: ast.Dict) -> CV:
+        """A dict literal with string-constant keys is a named row (a map
+        that returns one gives the next operator columns by name)."""
+        keys = []
+        for k in node.keys:
+            if not (isinstance(k, ast.Constant) and isinstance(k.value, str)):
+                raise NotCompilable("dict literal with non-str-const keys")
+            keys.append(k.value)
+        if len(set(keys)) != len(keys):
+            raise NotCompilable("dict literal with a repeated key")
+        return tuple_cv([self.eval(v) for v in node.values], names=keys)
+
     def eval_BinOp(self, node: ast.BinOp) -> CV:
         return self._binop(node.op, self.eval(node.left),
                            self.eval(node.right))
@@ -375,6 +389,8 @@ class Frame:
                 return self._re_search(attr, args)
             if module == "string" and attr == "capwords":
                 return self._capwords(args)
+            if recv.kind == "match":
+                return self._match_method(recv, attr, args)
             if recv.base is T.STR:
                 return self._str_method(recv, attr, args)
             raise NotCompilable(f"method {attr}")
@@ -396,12 +412,18 @@ class Frame:
         raise NotCompilable(f"call to {name}")
 
     def _re_search(self, fname: str, args: list[CV]) -> CV:
-        """Compiled re.search/re.match on the reference's boolean NFA
-        branch. Patterns the reference sends to its anchored engine (or to
-        the two-pass capture-group path) are NotCompilable here: that
-        engine is not ported, and the interpreter gives the same answers."""
+        """Compiled re.search/re.match over a string column. An anchored
+        pattern runs on the anchored engine (ops/regex.py) with its capture
+        groups; rows whose match needs deeper backtracking than the engine
+        explores raise PYTHON_FALLBACK and resolve on the interpreter.
+        Other patterns take the NFA (ops/nfa.py): its scan (B1) gives the
+        truth value, and for a non-nullable pattern of at most 32
+        positions that the anchored engine takes with a '^' in front, the
+        groups come lazily, where `.group` reads them (`_match_method`):
+        the leftmost start (`match_start`), then the anchored engine at
+        that offset."""
         from ..ops.nfa import compile_nfa
-        from ..ops.regex import anchored_engine_accepts
+        from ..ops.regex import try_compile_regex
 
         if len(args) != 2:
             raise NotCompilable("re.search arity")
@@ -411,8 +433,7 @@ class Frame:
         pattern = pat.const
         if fname == "match" and not pattern.startswith("^"):
             pattern = "^" + pattern   # re.match anchors implicitly
-        if anchored_engine_accepts(pattern):
-            raise NotCompilable("anchored regex engine not available")
+        rx = try_compile_regex(pattern)   # None: the NFA below
         if s.base is not T.STR:
             raise NotCompilable("re.search over non-string")
         if s.valid is not None:
@@ -424,13 +445,82 @@ class Frame:
         # multibyte rows: route them to the interpreter
         s = self.materialize(s)
         self._ascii_guard(s.sbytes, s.slen)
-        nfa = compile_nfa(pattern)
-        if not nfa.anchored_start and not nfa.nullable \
-                and nfa.n_pos <= _START_MAX_POS \
-                and anchored_engine_accepts("^" + pattern):
-            raise NotCompilable("two-pass regex capture path not available")
-        return CV(t=T.option(T.tuple_of(T.STR)), elts=(),
-                  valid=nfa.match(s.sbytes, s.slen), kind="match")
+        sb, sl = s.sbytes, s.slen
+        if rx is None:
+            nfa = compile_nfa(pattern)
+            rx2 = None
+            if not nfa.anchored_start and not nfa.nullable \
+                    and nfa.n_pos <= nfa._START_MAX_POS:
+                rx2 = try_compile_regex("^" + pattern)
+            valid = nfa.match(sb, sl)
+            if rx2 is None:
+                # boolean-only: `.group` is NotCompilable
+                return CV(t=T.option(T.tuple_of(T.STR)), elts=(),
+                          valid=valid, kind="match")
+            cell: list = []
+
+            def _two_pass():
+                if not cell:
+                    matched, start = nfa.match_start(sb, sl)
+                    shb, shl = S.slice_(sb, sl, start, sl)
+                    am, suspect, gs, ge = rx2.match(shb, shl)
+                    # the anchored engine's one retreat level may fall
+                    # short at the found offset: those rows interpret
+                    cell.append((_group_cvs(shb, shl, gs, ge),
+                                 matched & (suspect | ~am)))
+                return cell[0]
+
+            return CV(t=T.option(T.tuple_of(*[T.STR] *
+                                            (rx2.n_groups + 1))),
+                      elts=(), valid=valid, kind="match",
+                      names=("#lazy_groups", _two_pass))
+        matched, suspect, gs, ge = rx.match(sb, sl)
+        self.raise_where(suspect & ~matched, ExceptionCode.PYTHON_FALLBACK)
+        t_match = T.option(T.tuple_of(*[T.STR] * (rx.n_groups + 1)))
+        if sb.shape[1] <= _GROUP_WIN:
+            return CV(t=t_match, elts=_group_cvs(sb, sl, gs, ge),
+                      valid=matched, kind="match")
+        # a wide source: the groups are sliced to _GROUP_WIN bytes, so
+        # every later pass over a group column reads 48 bytes a row, not
+        # W; rows with a longer group route in one combined raise. Built
+        # lazily, so a consumer of the truth value alone keeps every row.
+        # Group 0 (the whole match) keeps the full width.
+        cell = []
+
+        def _groups():
+            if not cell:
+                over = self.ctx.zeros()
+                for g in range(1, rx.n_groups + 1):
+                    over = over | (ge[g] - gs[g] > _GROUP_WIN)
+                cell.append((_group_cvs(sb, sl, gs, ge, _GROUP_WIN),
+                             matched & over))
+            return cell[0]
+
+        return CV(t=t_match, elts=(), valid=matched, kind="match",
+                  names=("#lazy_groups", _groups))
+
+    def _match_method(self, m: CV, attr: str, args: list[CV]) -> CV:
+        """`.group()` / `.group(k)` with a constant k on a match; a None
+        match raises AttributeError. Other methods are NotCompilable."""
+        if attr != "group":
+            raise NotCompilable(f"match.{attr}")
+        if len(args) == 0:
+            idx = 0
+        elif len(args) == 1 and args[0].is_const and \
+                isinstance(args[0].const, int):
+            idx = args[0].const
+        else:
+            raise NotCompilable("match.group with non-constant index")
+        elts = m.elts
+        if not elts and m.names and m.names[0] == "#lazy_groups":
+            # the groups are built here, where they are read, with the
+            # rows they leave to the interpreter
+            elts, route = m.names[1]()
+            self.raise_where(route, ExceptionCode.PYTHON_FALLBACK)
+        if not 0 <= idx < len(elts):
+            raise NotCompilable(f"no such regex group {idx}")
+        self.raise_where(~m.valid, ExceptionCode.ATTRIBUTEERROR)
+        return elts[idx]
 
     def truthy(self, v: CV) -> torch.Tensor:
         if v.kind == "match":
@@ -973,7 +1063,17 @@ class Frame:
         raise NotCompilable(f"len() of {v.t}")
 
 
-_START_MAX_POS = 32   # the reference's NFARegex._START_MAX_POS
+_GROUP_WIN = 48   # bytes of a capture group column from a wide source
+
+
+def _group_cvs(sb, sl, gs, ge, win: Optional[int] = None) -> tuple:
+    """The match's groups as str CVs: group g is sb[gs[g]:ge[g]]; with
+    `win` the groups after group 0 are sliced to `win` bytes."""
+    out = []
+    for g, (a, b) in enumerate(zip(gs, ge)):
+        bb, bl = S.slice_(sb, sl, a, b, out_width=win if g else None)
+        out.append(CV(t=T.STR, sbytes=bb, slen=bl))
+    return tuple(out)
 # the str methods _str_method compiles
 _STR_METHODS = frozenset({"format", "find", "rfind", "index", "rindex",
                           "lower", "upper", "replace", "strip", "lstrip",
@@ -1061,9 +1161,14 @@ def merge_cv(frame: Frame, mask: torch.Tensor, a: CV, b: CV) -> CV:
     if am.elts is not None and bm.elts is not None:
         if len(am.elts) != len(bm.elts) or am.kind != bm.kind:
             raise NotCompilable("merging tuples of different shapes")
+        if am.names != bm.names:
+            # a dict's keys, in order, or a lazy match's group builder
+            # (compared by identity) belong to each row: branches that
+            # disagree cannot share one
+            raise NotCompilable("merging rows of different names")
         elts = [merge_cv(frame, mask, x, y)
                 for x, y in zip(am.elts, bm.elts)]
-        return tuple_cv(elts, names=am.names or bm.names,
+        return tuple_cv(elts, names=am.names,
                         valid=_merge_valid(mask, am, bm, n), kind=am.kind)
     if am.kind is not None or bm.kind is not None:
         raise NotCompilable("merging special objects")

@@ -1,6 +1,10 @@
 // NFA scan: re.search existence for a Glushkov NFA of at most 64 positions
 // over a batch of byte strings (u8 [N, W] zero-padded rows + int32 lengths).
 //
+// Two entry points: tpx_nfa_scan (existence, below) and tpx_nfa_start (the
+// leftmost match start, after it; it shares the row-tile loader and the
+// chunked follow tables).
+//
 // Replaces tuplex_tpu/ops/pallas_nfa.py:_build_kernel (the Pallas kernel the
 // reference package runs on the TPU). It computes the same function and is
 // checked against the plain torch version, NFARegex.match_bitmask in
@@ -257,8 +261,143 @@ KernelFn pick_kernel(int nchunk, int vec) {
   }
 }
 
+// Leftmost match start: re.search's match position for a Glushkov NFA of at
+// most 32 positions (NFARegex.match_start; the reference's min-plus scan,
+// tuplex_tpu/ops/nfa.py:328, replaced). The plain torch version it is held
+// to is NFARegex.match_start_plain.
+//
+// Design: a match starts at j iff the REVERSED automaton, fed the row right
+// to left and seeded at every valid match end, holds a FIRST position after
+// byte j. So the leftmost start is the smallest such j, and the state stays
+// one 64-bit word (no per-position start values, no min-plus):
+//     R_j = (FOLLOW^T(R_{j+1}) | seed_j) & CLASSTAB[byte j]
+//     hit at j iff R_j & FIRST (and, under '^', only j == 0)
+// FOLLOW^T comes as byte-chunked tables like the scan's (the host transposes
+// the follow sets, ops/nfa_cuda.py:pack_start_tables). Without '$' every
+// byte seeds LAST, folded into every F8[0] entry on the host; under '$' the
+// seed goes only at j = len - 1 and at j = end_at - 1 (end_at = len - 1 when
+// the row ends in '\n'), which the thread finds before the scan.
+// One thread per row, as in the scan; the block walks its column chunks
+// from the last one down, copying each into the same swizzled tile, and a
+// thread reads its row's chunk 16 bytes at a time from the top. Scanning
+// down, the last hit is the smallest, so `best` is overwritten at each hit
+// (a select); there is no early exit.
+template <int NCHUNK, int VEC, bool END>
+__global__ void __launch_bounds__(kRows) nfa_start_kernel(
+    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
+    long long n, long long w, const unsigned long long* __restrict__ tables,
+    int anchored_start, bool* __restrict__ matched_out,
+    int32_t* __restrict__ start_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_wmax[kRows / 32];
+  unsigned long long* s_class = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* s_f8 = s_class + 256;
+  uint8_t* tile = reinterpret_cast<uint8_t*>(s_f8 + 256 * NCHUNK);
+
+  for (int i = threadIdx.x; i < 256 * (1 + NCHUNK); i += kRows)
+    s_class[i] = tables[i];
+  const unsigned long long seedset = tables[256 * (1 + NCHUNK)];      // LAST
+  const unsigned long long accept = tables[256 * (1 + NCHUNK) + 1];   // FIRST
+
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(n - row0 < kRows ? n - row0 : kRows);
+  const long long row = row0 + threadIdx.x;
+  long long len = 0;
+  if (threadIdx.x < rows) {
+    len = lens[row];
+    if (len < 0) len = 0;
+  }
+  const int stop = static_cast<int>(len < w ? len : w);
+
+  const int wmax = __reduce_max_sync(0xffffffffu, static_cast<unsigned>(stop));
+  if ((threadIdx.x & 31) == 0) s_wmax[threadIdx.x >> 5] = wmax;
+  __syncthreads();
+  int maxlen = 0;
+#pragma unroll
+  for (int k = 0; k < kRows / 32; ++k) maxlen = max(maxlen, s_wmax[k]);
+  const int lim = static_cast<int>(
+      min(w, static_cast<long long>((maxlen + VEC - 1) / VEC * VEC)));
+  const uint8_t* base = bytes + row0 * w;
+
+  // '$': the columns whose byte may end a match (-1: none)
+  int j1 = -1, j2 = -1;
+  if (END && stop > 0) {
+    const bool nl = __ldg(base + threadIdx.x * w + stop - 1) == 10u;
+    if (len <= w) j1 = static_cast<int>(len - 1);
+    const long long e2 = nl ? len - 2 : len - 1;   // end_at - 1
+    if (e2 >= 0 && e2 < stop) j2 = static_cast<int>(e2);
+  }
+
+  unsigned long long R = 0ull;
+  int best = -1;
+  const int t = threadIdx.x;
+  for (int c0 = maxlen > 0 ? (maxlen - 1) / kCols * kCols : -1; c0 >= 0;
+       c0 -= kCols) {
+    __syncthreads();   // every thread is done with the previous tile
+    load_tile<VEC>(tile, base, w, rows, c0, min(c0 + kCols, lim));
+    __syncthreads();
+    const int nb = min(stop - c0, kCols);   // this row's bytes in the chunk
+    if (nb <= 0) continue;
+    const int full = nb & ~15;
+    for (int k = nb - 1; k >= full; --k) {
+      const int j = c0 + k;
+      unsigned long long sd = 0ull;
+      if (END && (j == j1 || j == j2)) sd = seedset;
+      R = (follow8<NCHUNK>(R, s_f8) | sd) & s_class[tile[tile_off(t, k)]];
+      best = (R & accept) != 0ull ? j : best;
+    }
+    for (int k = full - 16; k >= 0; k -= 16) {
+      const uint4 q = *reinterpret_cast<const uint4*>(tile + tile_off(t, k));
+      const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int b = 15; b >= 0; --b) {
+        const int j = c0 + k + b;
+        unsigned long long sd = 0ull;
+        if (END && (j == j1 || j == j2)) sd = seedset;
+        R = (follow8<NCHUNK>(R, s_f8) | sd) &
+            s_class[(words[b >> 2] >> (8 * (b & 3))) & 0xffu];
+        best = (R & accept) != 0ull ? j : best;
+      }
+    }
+  }
+  const bool matched = anchored_start ? best == 0 : best >= 0;
+  if (threadIdx.x < rows) {
+    matched_out[row] = matched;
+    start_out[row] = matched ? best : 0;
+  }
+}
+
+using StartFn = void (*)(const uint8_t*, const int32_t*, long long, long long,
+                         const unsigned long long*, int, bool*, int32_t*);
+
+template <int NCHUNK, bool END>
+StartFn pick_start_vec(int vec) {
+  if (vec == 16) return nfa_start_kernel<NCHUNK, 16, END>;
+  if (vec == 4) return nfa_start_kernel<NCHUNK, 4, END>;
+  return nfa_start_kernel<NCHUNK, 1, END>;
+}
+
+template <bool END>
+StartFn pick_start_end(int nchunk, int vec) {
+  switch (nchunk) {
+    case 1: return pick_start_vec<1, END>(vec);
+    case 2: return pick_start_vec<2, END>(vec);
+    case 3: return pick_start_vec<3, END>(vec);
+    default: return pick_start_vec<4, END>(vec);
+  }
+}
+
+constexpr int kMaxStartChunks = 4;   // ceil(32 / 8)
+
 // dynamic shared memory raised past 48 KB, once per device and kernel
 bool g_smem_set[kMaxDevices][kMaxChunks][3];
+bool g_start_smem_set[kMaxDevices][kMaxStartChunks][3][2];
+
+int vec_for(const void* bytes, long long w) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(bytes);
+  return (w % 16 == 0 && addr % 16 == 0) ? 16
+         : (w % 4 == 0 && addr % 4 == 0) ? 4 : 1;
+}
 
 }  // namespace
 
@@ -278,9 +417,7 @@ extern "C" int tpx_nfa_scan(const void* bytes, const void* lens, long long n,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(bytes);
-  const int vec = (w % 16 == 0 && addr % 16 == 0) ? 16
-                  : (w % 4 == 0 && addr % 4 == 0) ? 4 : 1;
+  const int vec = vec_for(bytes, w);
   const KernelFn fn = pick_kernel(n_chunks, vec);
   const size_t smem =
       sizeof(unsigned long long) * 256 * (1 + n_chunks) + kRows * kCols;
@@ -301,5 +438,45 @@ extern "C" int tpx_nfa_scan(const void* bytes, const void* lens, long long n,
       static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(lens), n,
       w, static_cast<const unsigned long long*>(tables), anchored_start,
       anchored_end, nullable, static_cast<bool*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of the start scan. `tables` is the device buffer of
+// ops/nfa_cuda.py:pack_start_tables (256 * (1 + n_chunks) + 2 uint64, at
+// most 4 chunks: 32 positions). Writes matched [n] and start [n] (0 where
+// unmatched). Launches on `stream`; returns the cudaGetLastError() code of
+// the launch (0 = launched).
+extern "C" int tpx_nfa_start(const void* bytes, const void* lens, long long n,
+                             long long w, const void* tables, int n_chunks,
+                             int anchored_start, int anchored_end,
+                             void* matched, void* start, void* stream) {
+  if (n_chunks < 1 || n_chunks > kMaxStartChunks || w < 1 ||
+      w > (1ll << 30) || n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const int vec = vec_for(bytes, w);
+  const StartFn fn = anchored_end ? pick_start_end<true>(n_chunks, vec)
+                                  : pick_start_end<false>(n_chunks, vec);
+  const size_t smem =
+      sizeof(unsigned long long) * 256 * (1 + n_chunks) + kRows * kCols;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const int vi = vec == 16 ? 2 : vec == 4 ? 1 : 0;
+  bool& set = g_start_smem_set[dev][n_chunks - 1][vi][anchored_end ? 1 : 0];
+  if (!set) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set = true;
+  }
+  const long long blocks = (n + kRows - 1) / kRows;
+  fn<<<static_cast<unsigned>(blocks), kRows, smem,
+       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(lens), n,
+      w, static_cast<const unsigned long long*>(tables), anchored_start,
+      static_cast<bool*>(matched), static_cast<int32_t*>(start));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.errors import NotCompilable
-from ..runtime.torchcfg import I64
+from ..runtime.torchcfg import I32, I64
 from .regex import _byte_in_spec, _in_spec
 
 try:
@@ -327,6 +327,93 @@ class NFARegex:
             hit = self._kernel_bufs[key] = torch.from_numpy(
                 nfa_cuda.pack_tables(self.tables).view(np.int64)).to(device)
         return hit
+
+    _START_MAX_POS = 32   # the reference's cap for start tracking
+
+    def match_start(self, bytes_: torch.Tensor, lens: torch.Tensor):
+        """(matched [N] bool, start [N] int32): the LEFTMOST match start,
+        which is where CPython's re.search finds its match (start 0 where
+        there is none). CUDA tensors go to the hand-written kernel
+        (ops/nfa_cuda.py `match_start_cuda`), CPU tensors to
+        `match_start_plain`. Nullable patterns (a zero-width match) and
+        patterns of no or more than 32 positions raise NotCompilable, as
+        in the reference."""
+        self._check_start()
+        if bytes_.is_cuda:
+            from . import nfa_cuda
+
+            return nfa_cuda.match_start_cuda(
+                self.tables, self._start_tables(bytes_.device),
+                bytes_.contiguous(), lens.contiguous())
+        return self.match_start_plain(bytes_, lens)
+
+    def _check_start(self) -> None:
+        if self.nullable:
+            raise NotCompilable("start tracking over nullable pattern")
+        if self.n_pos == 0 or self.n_pos > self._START_MAX_POS:
+            raise NotCompilable("pattern outside start-tracking bounds")
+
+    def _start_tables(self, device):
+        """The start kernel's table buffer (nfa_cuda.pack_start_tables),
+        uploaded once per device."""
+        key = ("start", str(device))
+        hit = self._kernel_bufs.get(key)
+        if hit is None:
+            from . import nfa_cuda
+
+            hit = self._kernel_bufs[key] = torch.from_numpy(
+                nfa_cuda.pack_start_tables(self.tables).view(
+                    np.int64)).to(device)
+        return hit
+
+    def match_start_plain(self, bytes_, lens):
+        """Plain torch version of the start scan, the reference package's
+        min-plus formulation: S [N, P] holds for each NFA position the
+        earliest seed column that reaches it (INF = inactive), and per
+        byte column j
+
+            S'[p] = min(min over q -> p of S[q], j if p in FIRST)
+                    where the byte is in class(p), else INF
+            best  = min(best, min over p in LAST of S'[p])  (subject to $)
+
+        It holds the CUDA kernel to the reference's function."""
+        self._check_start()
+        t = self.tables
+        n, w = bytes_.shape
+        dev = bytes_.device
+        P = t.n_pos
+        INF = 1 << 29          # INF + INF stays inside int32
+        bits = np.arange(P, dtype=np.uint64)
+        unpack = lambda v: ((np.uint64(v) >> bits) & np.uint64(1)) == 1  # noqa: E731
+        follow = np.stack([unpack(m) for m in t.follow])       # [q, p]
+        cost = torch.from_numpy(
+            np.where(follow, 0, INF).astype(np.int32)).to(dev)
+        cmtab = torch.from_numpy(
+            (t.classtab[:, None] >> bits[None, :]) & np.uint64(1) == 1
+        ).to(dev)                                             # [256, P]
+        first_b = torch.from_numpy(unpack(t.first)).to(dev)
+        last_b = torch.from_numpy(unpack(t.last)).to(dev)
+        lens64, end_at = self._end_masks(bytes_, lens)
+        S = torch.full((n, P), INF, dtype=I32, device=dev)
+        best = torch.full((n,), INF, dtype=I32, device=dev)
+        inf = torch.tensor(INF, dtype=I32, device=dev)
+        for j in range(w):
+            cm = cmtab[bytes_[:, j].to(I64)]
+            nxt = (S[:, :, None] + cost[None, :, :]).amin(dim=1)
+            if t.anchored_start:
+                seed = torch.where(first_b & (j == 0), 0, inf)
+            else:
+                seed = torch.where(first_b, j, inf)
+            S2 = torch.minimum(nxt, seed[None, :])
+            S2 = torch.where(cm & (j < lens64)[:, None], S2, inf)
+            hit = torch.where(last_b[None, :], S2, inf).amin(dim=1)
+            if t.anchored_end:
+                hit = torch.where((lens64 == j + 1) | (end_at == j + 1),
+                                  hit, inf)
+            S = S2
+            best = torch.minimum(best, hit)
+        matched = best < INF
+        return matched, torch.where(matched, best, 0).to(I32)
 
     def match_bitmask(self, bytes_, lens):
         """Plain torch version of the scan (one op sequence per byte

@@ -101,22 +101,27 @@ def find_const(bytes_, lens, needle: str, start=None, reverse: bool = False):
     return found.to(I32)
 
 
-def slice_(bytes_, lens, start, stop):
+def slice_(bytes_, lens, start, stop, out_width: int | None = None):
     """s[start:stop] with per-row bounds (int32 tensors, Python index
     semantics, or None for the defaults). Returns (bytes [N, Wout],
-    lens [N]). Prefix slices (`s[:x]`) move no bytes: only the length
-    shrinks and the tail is zeroed."""
+    lens [N]); Wout is `out_width` where given, else W. A row whose slice
+    is longer than `out_width` keeps its full length and its first
+    `out_width` bytes: the caller routes it. Prefix slices (`s[:x]`) move
+    no bytes: only the length shrinks and the tail is zeroed."""
     n, w = bytes_.shape
     dev = bytes_.device
     if stop is None:
         stop = lens
     stop = torch.minimum(
         torch.clamp(torch.where(stop < 0, stop + lens, stop), min=0), lens)
-    cols = torch.arange(w, dtype=I32, device=dev)[None, :]
+    wout = w if out_width is None else out_width
+    cols = torch.arange(wout, dtype=I32, device=dev)[None, :]
     if start is None:
         out_len = stop
+        src = bytes_[:, :wout] if wout <= w else \
+            torch.nn.functional.pad(bytes_, (0, wout - w))
         keep = cols < out_len[:, None]
-        return torch.where(keep, bytes_, 0).to(U8), out_len.to(I32)
+        return torch.where(keep, src, 0).to(U8), out_len.to(I32)
     start = torch.minimum(
         torch.clamp(torch.where(start < 0, start + lens, start), min=0),
         lens)
