@@ -121,6 +121,21 @@ interpreter, the general-case tier and the exact exit finished, the
 general tier's and the interpreter's seconds, and microseconds per
 interpreter row.
 
+Every job's transform stages dispatch through the compile plane
+(exec/compilequeue.py): each (stage, input shapes) key is captured once as
+a CUDA graph and replayed on later partitions and later jobs. Each job
+line (phases 4-7 and 9-11, and the log grep's) prints its captures,
+replays, eager dispatches, declines by reason, compileTime, the graph
+pools' bytes and share of the card, the store's bytes and evictions, and
+the card's peak memory since the previous job line; the run fails on a decline that DECLINES_LISTED (PERF.md)
+does not list. The log grep (phase 5), the weblogs strip variant and the
+status grep (5b) and Z1 (6) then run twice more: through the store again,
+which must capture nothing, and under compilequeue.eager() (the dispatch
+before the plane). Rows must equal the loop's and the kernel counters
+(nfa_scan, nfa_start, the anchored engine, which count replays) the first
+run's; the three walls and the host ms per partition dispatch (captures,
+replays, eager runs) are printed.
+
 Phases 7, 9 and 10 print, for every stage of Q6, Q1, NYC 311, flights and
 Q19 (the build sides' plans included), the device handoff between stages:
 partitions handed off on the card, partitions sent by the host route and
@@ -164,6 +179,7 @@ from tuplex_tpu_torch.compiler.foldprog import lower_fold  # noqa: E402
 from tuplex_tpu_torch.compiler.pypipeline import (        # noqa: E402
     build_python_pipeline)
 from tuplex_tpu_torch.core import typesys as T            # noqa: E402
+from tuplex_tpu_torch.exec import compilequeue as CQ      # noqa: E402
 from tuplex_tpu_torch.exec.joinexec import KeyLayout      # noqa: E402
 from tuplex_tpu_torch.exec.local import source_partitions  # noqa: E402
 from tuplex_tpu_torch.io import csvsource                 # noqa: E402
@@ -198,6 +214,9 @@ Q19_ITEMS = 1_000_000       # SF1's lineitem has 6,001,215: cut for time
 Q19_SEED = 19
 WIDENED_ROWS = 1_000_000
 WIDENED_SEED = 5
+# compile-plane declines the main path may show (PERF.md lists each with
+# its reason): none
+DECLINES_LISTED: frozenset = frozenset()
 PROBES = 1_000_000          # probe rows of the kernel phase's batches
 FOLD_ROWS = 1_000_000       # rows of the general fold's seeded batches
 FOLD_SEGMENTS = (1, 6, 2_352, 250_000)   # whole file, Q1's keys, ship
@@ -415,11 +434,15 @@ def start_kernel_phase(mb, ml, rb, rl, edges) -> int:
 @contextlib.contextmanager
 def recording(module, attr: str, inputs: list, pick):
     """Records pick(*args) of every call the main path makes to a kernel's
-    wrapper, module.attr, while the context is open."""
+    wrapper, module.attr, while the context is open (eagerly or in a
+    graph's warm-up; a replay calls no wrapper)."""
     kernel = getattr(module, attr)
 
     def wrapper(*args, **kw):
-        inputs.append(pick(*args, **kw))
+        # a call made while a graph is captured computes nothing then:
+        # its tensors hold no input yet
+        if not torch.cuda.is_current_stream_capturing():
+            inputs.append(pick(*args, **kw))
         return kernel(*args, **kw)
 
     setattr(module, attr, wrapper)
@@ -519,6 +542,9 @@ def weblogs_phase(path: str, dev) -> tuple[int, int, dict]:
                 lambda: build(Context().text(path)).collect())
             print(f"{what} under torch.profiler: {pwall:.3f} s, device "
                   f"busy {busy:.4f} s, idle share {1 - busy / pwall:.4f}")
+        else:
+            plane_compare(what, lambda c: build(c.text(path)), want,
+                          (wall, m, counts))
     print(f"weblogs: the port's engine marks {suspects} ASCII lines "
           f"suspect and unmatched")
     b, l = max(starts, key=lambda bl: bl[0].shape[0])
@@ -555,13 +581,112 @@ def timed(fn):
 
 
 def tier_line(m) -> str:
-    """The resolve tiers of a job's transform stages (api/metrics.py)."""
+    """The resolve tiers of a job's transform stages (api/metrics.py),
+    then its compile plane (`plane_line`, which fails the run on a decline
+    PERF.md does not list)."""
     n = m.interpreterRows()
     per_row = f"{m.slowPathWallTime() / n * 1e6:.1f} us" if n else "-"
     return (f"interpreter rows {n}, general rows {m.generalRows()}, "
             f"exact-exit rows {m.exactExitRows()}, general path "
             f"{m.generalPathWallTime():.3f} s, slow path "
-            f"{m.slowPathWallTime():.3f} s ({per_row} per interpreter row)")
+            f"{m.slowPathWallTime():.3f} s ({per_row} per interpreter "
+            f"row); {plane_line(m)}")
+
+
+def _stage_sum(m, key: str):
+    return sum(s.get(key, 0) for s in m.stages)
+
+
+def dispatch_ms(m) -> str:
+    """Host ms per partition dispatch of a job's transform stages: all of
+    them, and those that captured, replayed and ran eagerly."""
+    kinds = (("capture", "capture_dispatches", "capture_dispatch_s"),
+             ("replay", "graph_replays", "replay_dispatch_s"),
+             ("eager", "eager_dispatches", "eager_dispatch_s"))
+    n_all = sum(_stage_sum(m, n) for _, n, _ in kinds)
+    s_all = sum(_stage_sum(m, s) for _, _, s in kinds)
+    parts = [f"{s_all / n_all * 1e3:.3f} ms over {n_all}" if n_all
+             else "no dispatch"]
+    for what, n, sec in kinds:
+        k = _stage_sum(m, n)
+        if k:
+            parts.append(f"{what} {_stage_sum(m, sec) / k * 1e3:.3f} ms x "
+                         f"{k}")
+    return ", ".join(parts)
+
+
+def plane_line(m) -> str:
+    """A job's compile plane (exec/compilequeue.py): captures, replays,
+    eager dispatches, declines by reason, compileTime, and `memory_line`;
+    fails on a decline not listed in DECLINES_LISTED."""
+    declines = m.graphDeclines()
+    unlisted = set(declines) - DECLINES_LISTED
+    if unlisted:
+        raise AssertionError(f"compile plane declined {declines}: "
+                             f"{CQ.declines()}")
+    fallbacks = {k: v for s in m.stages for k, v in s.items()
+                 if k.startswith("key_fallback_")}
+    return (f"plane: captures {m.stageCompileCount()}, replays "
+            f"{m.graphReplays()}, eager dispatches "
+            f"{_stage_sum(m, 'eager_dispatches')}, declines {declines}, "
+            f"key fallbacks {fallbacks}, dedup hits "
+            f"{_stage_sum(m, 'dedup_hits')}, compileTime "
+            f"{m.compileTime():.3f} s; {memory_line()}")
+
+
+def memory_line() -> str:
+    """The store's memory on the card (its graphs' pools, their share of
+    the card, all it holds, its evictions so far) beside the card's peak
+    allocated and reserved memory since the previous such line, which the
+    eager stages (aggregates, joins, the general tier) share with the
+    graphs."""
+    dev = torch.device("cuda")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    pools = CQ.STORE.pool_bytes()
+    peak = (torch.cuda.max_memory_allocated(dev),
+            torch.cuda.max_memory_reserved(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    return (f"graph pools {pools} B ({pools / total:.4f} of the card) in "
+            f"{len(CQ.STORE.pools())}, store {CQ.STORE.nbytes} B in "
+            f"{len(CQ.STORE)} graphs, evictions {CQ.STORE.evictions}; "
+            f"card peak allocated {peak[0]} B, reserved {peak[1]} B")
+
+
+def kernel_counts() -> tuple:
+    return (nfa_cuda.launches, nfa_cuda.start_launches, RX.calls)
+
+
+def plane_compare(what: str, make, want, cold) -> None:
+    """A job run twice more: through the store again (a warm run: it must
+    capture nothing) and under compilequeue.eager() (every partition's
+    stage function run eagerly, as before the plane). Each run's rows
+    must equal the loop's `want` and its kernel counters (nfa_scan and
+    nfa_start launches, anchored engine calls) the cold run's; printed:
+    the wall and the host ms per partition dispatch of the cold run
+    (`cold` = (wall, metrics, counters)), the warm one and the eager
+    one."""
+    runs = {"cold store": cold}
+    for mode in ("warm store", "eager"):
+        ctx = Context()
+        nfa_cuda.launches = nfa_cuda.start_launches = RX.calls = 0
+        with CQ.eager() if mode == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            got = make(ctx).collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"{what} ({mode}): {len(got)} rows != the "
+                                 f"loop's {len(want)}")
+        runs[mode] = (wall, ctx.metrics, kernel_counts())
+    if runs["warm store"][1].stageCompileCount() != 0:
+        raise AssertionError(f"{what}: the warm run captured "
+                             f"{runs['warm store'][1].stageCompileCount()}")
+    if len({r[2] for r in runs.values()}) != 1:
+        raise AssertionError(f"{what}: kernel counters differ: "
+                             f"{ {k: r[2] for k, r in runs.items()} }")
+    for mode, (wall, m, counts) in runs.items():
+        print(f"  {what}, {mode}: {wall:.3f} s, dispatch host "
+              f"{dispatch_ms(m)}; {plane_line(m)}; counters {counts}")
 
 
 def interpreter_tiers(ctx, ds, what: str, n: int = 20_000) -> str:
@@ -748,6 +873,7 @@ def zillow_phase(tmp: str, total_calls: dict) -> None:
     want_excs = zillow.exception_counts_python(path)
     ctx = Context()
     zero_native_calls()
+    nfa_cuda.launches = nfa_cuda.start_launches = RX.calls = 0
     t0 = time.perf_counter()
     ds = zillow.build_pipeline(ctx.csv(path))
     got = ds.collect()
@@ -782,6 +908,8 @@ def zillow_phase(tmp: str, total_calls: dict) -> None:
           f"{m.totalWallTime():.3f} s (fast + slow + merge), outside the "
           f"backend {wall - m.totalWallTime():.3f} s (sniff, CSV source, "
           f"results to Python); native calls {calls}")
+    plane_compare("zillow Z1", lambda c: zillow.build_pipeline(c.csv(path)),
+                  want, (wall, m, kernel_counts()))
     ctx = Context()
     print(interpreter_tiers(ctx, zillow.build_pipeline(ctx.csv(path)),
                             "zillow"))
@@ -1670,13 +1798,14 @@ def main() -> None:
     want = logs.run_grep_reference(path)
     ref_s = time.perf_counter() - t0
     ctx = Context()
-    nfa_cuda.launches = 0
+    nfa_cuda.launches = nfa_cuda.start_launches = RX.calls = 0
     zero_native_calls()
     t0 = time.perf_counter()
     got = logs.build_grep(ctx.text(path)).collect()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = nfa_cuda.launches
+    grep_counts = kernel_counts()
     calls = native_path_calls(total_calls, ("split_lines", "gather_rows",
                                             "decode_columns"), "log grep")
     if got != want:
@@ -1696,7 +1825,9 @@ def main() -> None:
           f"{m.slowPathWallTime():.3f} s, backend {m.totalWallTime():.3f} s "
           f"(fast + slow + merge), outside the backend "
           f"{wall - m.totalWallTime():.3f} s (source read and encode, "
-          f"results to Python); native calls {calls}")
+          f"results to Python); native calls {calls}; {plane_line(m)}")
+    plane_compare("log grep", lambda c: logs.build_grep(c.text(path)), want,
+                  (wall, m, grep_counts))
     nat_s, py_s, n_rows = results_to_python(
         lambda c: logs.build_grep(c.text(path)))
     print(f"log grep results to Python ({n_rows} rows): native "

@@ -18,6 +18,7 @@ package by tests/test_torch_strings.py), and a plain Python loop. Tolerance: exa
 """
 
 import ast
+import contextlib
 import re
 
 import numpy as np
@@ -967,3 +968,97 @@ def test_seg_fold_kernel_float_floordiv_mod_edges(cuda_device):
     want = _same_fold(prog, inputs)
     assert (want.status == SF.ST_EXC + SF.ZERODIVISION).sum() == 1
     assert (want.status == SF.ST_FOLDED).sum() == n - 1
+
+
+# ---------------------------------------------------------------------------
+# the compile plane: CUDA graphs replayed against the eager path
+# ---------------------------------------------------------------------------
+
+def _plane_jobs(tmp_path):
+    from tuplex_tpu_torch.models import logs, zillow
+
+    log = str(tmp_path / "a.log")
+    logs.generate_log(log, 6000, seed=17, non_ascii_every=1000)
+    z = str(tmp_path / "z.csv")
+    zillow.generate_csv(z, 3000, seed=7)
+    return {
+        "log grep": lambda c: logs.build_grep(c.text(log)),
+        "zillow": lambda c: zillow.build_pipeline(c.csv(z)),
+        "weblogs regex": lambda c: logs.build_pipeline(c.text(log), "regex"),
+        "status grep": lambda c: logs.build_status_grep(c.text(log)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", ["log grep", "zillow", "weblogs regex",
+                                 "status grep"])
+def test_graph_replays_equal_the_eager_path(job, tmp_path, cuda_device):
+    """Each job eagerly (compilequeue.eager()), then through the store
+    twice (captures, then replays only): rows equal bit for bit (repr), the
+    same exceptions, and the kernel counters (nfa_scan, nfa_start, the
+    anchored engine) the same in all three runs."""
+    from tuplex_tpu_torch.exec import compilequeue as CQ
+    from tuplex_tpu_torch.ops import regex as RX
+
+    make = _plane_jobs(tmp_path)[job]
+    conf = {"tuplex.partitionSize": "128KB"}   # several partitions
+    runs = []
+    CQ.clear()
+    for mode in ("eager", "capture", "replay"):
+        nfa_cuda.launches = nfa_cuda.start_launches = RX.calls = 0
+        ctx = tuplex_tpu_torch.Context(conf=conf)
+        with CQ.eager() if mode == "eager" else contextlib.nullcontext():
+            ds = make(ctx)
+            rows = ds.collect()
+        torch.cuda.synchronize()
+        runs.append((repr(rows), ds.exception_counts(), (
+            nfa_cuda.launches, nfa_cuda.start_launches, RX.calls),
+            ctx.metrics))
+    assert runs[0][:3] == runs[1][:3] == runs[2][:3]
+    cap, rep = runs[1][3], runs[2][3]
+    assert cap.graphDeclines() == {}, CQ.declines()
+    assert cap.stageCompileCount() >= 1
+    assert rep.stageCompileCount() == 0 and rep.graphReplays() >= 2
+    assert rep.compileTime() == 0.0
+
+
+@pytest.mark.cuda
+def test_evicted_graphs_return_their_pool(tmp_path, cuda_device,
+                                          monkeypatch):
+    """The store counts the memory its graphs' pool holds, and evicting
+    the graphs gives it back: after `shrink(0)` the card's reserved memory
+    (the allocator's cache emptied) falls by at least the pool's bytes.
+    With a capacity below one job's graphs a later job's captures start
+    pools of their own and evict the earlier job's graphs, pools and all."""
+    from tuplex_tpu_torch.exec import compilequeue as CQ
+
+    jobs = _plane_jobs(tmp_path)
+    conf = {"tuplex.partitionSize": "128KB"}
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    CQ.clear()
+    r0 = reserved()
+    jobs["weblogs regex"](tuplex_tpu_torch.Context(conf=conf)).collect()
+    first = CQ.STORE.pool_bytes()
+    assert first > 0 and len(CQ.STORE.pools()) == 1
+    assert CQ.STORE.nbytes == first + sum(g.nbytes
+                                          for g in CQ.STORE.graphs())
+    r1 = reserved()
+    assert r1 - r0 >= first
+    CQ.STORE.shrink(0)
+    assert len(CQ.STORE) == 0 and CQ.STORE.nbytes == 0
+    assert r1 - reserved() >= first
+
+    jobs["weblogs regex"](tuplex_tpu_torch.Context(conf=conf)).collect()
+    old = CQ.STORE.pools()
+    monkeypatch.setattr(CQ.STORE, "capacity", 1)
+    ctx = tuplex_tpu_torch.Context(conf=conf)
+    jobs["zillow"](ctx).collect()
+    assert ctx.metrics.stageCompileCount() >= 1
+    assert len(CQ.STORE) == 1 and CQ.STORE.evictions > 0
+    assert all(p is not q for p in old for q in CQ.STORE.pools())
+    CQ.clear()

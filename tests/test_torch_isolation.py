@@ -210,3 +210,41 @@ def test_package_imports_neither_jax_nor_reference():
             for name in names:
                 assert name.split(".")[0] not in (
                     "jax", "jaxlib", "tuplex_tpu", "pyarrow"), (path, name)
+
+
+def test_compile_plane_starts_no_process(monkeypatch):
+    """The compile plane captures and replays in the dispatching process:
+    with every way of starting a process refused, a job captures its
+    graph and a second job replays it (the reference's compile children
+    outlive their test run, ROADMAP C4). The module imports nothing that
+    starts processes or threads."""
+    import subprocess as sp
+
+    import tuplex_tpu_torch
+    from tuplex_tpu_torch import native
+    from tuplex_tpu_torch.exec import compilequeue as CQ
+
+    native.get()          # the host module's build may run g++ first
+
+    def refuse(*a, **k):
+        raise AssertionError("a process was started")
+
+    for mod, name in ((os, "fork"), (os, "forkpty"), (os, "posix_spawn"),
+                      (os, "posix_spawnp"), (sp.Popen, "__init__")):
+        monkeypatch.setattr(mod, name, refuse)
+    CQ.clear()
+    data = list(range(3000))
+    for want_captures in (2, 0):
+        ctx = tuplex_tpu_torch.Context(device="cpu",
+                                       conf={"tuplex.partitionSize": "8KB"})
+        got = ctx.parallelize(data).map(lambda x: x * 3).collect()
+        assert got == [x * 3 for x in data]
+        assert ctx.metrics.stageCompileCount() == want_captures
+    CQ.clear()
+    tree = ast.parse(open(CQ.__file__).read())
+    imported = {a.name.split(".")[0] for n in ast.walk(tree)
+                if isinstance(n, ast.Import) for a in n.names} | {
+        (n.module or "").split(".")[0] for n in ast.walk(tree)
+        if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert not imported & {"subprocess", "multiprocessing", "concurrent",
+                           "threading", "signal"}, imported

@@ -141,9 +141,9 @@ def test_q1_reads_no_l_tax(lineitem, monkeypatch):
     staged = []
     real = C.stage_partition
 
-    def spy(part, device):
+    def spy(part, device, **kw):
         staged.append(tuple(part.schema.columns))
-        return real(part, device)
+        return real(part, device, **kw)
 
     monkeypatch.setattr(C, "stage_partition", spy)
     tpch.q1(ctx.csv(lineitem)).collect()

@@ -94,6 +94,35 @@ class Metrics:
         gathered for the slow paths, lazy leaves fetched whole."""
         return int(self._sum("d2h_bytes"))
 
+    def compileTime(self) -> float:
+        """Seconds the transform stages spent capturing their graphs
+        (exec/compilequeue.py; reference: JobMetrics.h get_compile_time).
+        A graph found in the in-process store costs nothing here: a fully
+        warm second run reports 0.0."""
+        return float(self._sum("compile_s"))
+
+    def stageCompileCount(self) -> int:
+        """Graphs the transform stages captured (0 on a warm second run
+        of a job in the same process)."""
+        return int(self._sum("stage_compiles"))
+
+    def graphReplays(self) -> int:
+        """Partitions the transform stages dispatched by replaying a
+        captured graph."""
+        return int(self._sum("graph_replays"))
+
+    def graphDeclines(self) -> dict:
+        """{reason: partitions} run eagerly because their stage function
+        could not be captured (a wait on the device, a host copy, a failed
+        capture)."""
+        out: dict = {}
+        for m in self.stages:
+            for k, v in m.items():
+                if k.startswith("graph_declined_"):
+                    r = k[len("graph_declined_"):]
+                    out[r] = out.get(r, 0) + v
+        return out
+
     def resolveTierMix(self) -> dict:
         """The share of the rows that left the fast path which each resolve
         tier finished: {'exact_exit': f, 'general': f, 'interpreter': f}

@@ -22,9 +22,13 @@ Per partition:
     (reference: ResolveTask.cc:238-283 merge-in-order)
 
 Device work is queued without waiting: up to `_WINDOW` partitions are in
-flight while the host merges an earlier one. A stage that runs a fused
-whole-dataset fold fetches the fold's partials and per-row flags, not its
-rows (exec/aggexec.py `FoldPartial`); an AggregateStage runs on the
+flight while the host merges an earlier one. Each partition's stage
+function runs through the compile plane (exec/compilequeue.py): captured
+as a CUDA graph for the first partition of a (stage, input shapes) key,
+replayed for later ones; the re-runs below (an '#overflow' without
+compaction, a fold turned off) are keys of their own. A stage that runs a
+fused whole-dataset fold fetches the fold's partials and per-row flags,
+not its rows (exec/aggexec.py `FoldPartial`); an AggregateStage runs on the
 AggregateExecutor. `run_plan` runs a job's stages in order, a JoinStage
 on the JoinExecutor after its build side's plan.
 
@@ -67,6 +71,7 @@ from ..plan.physical import (AggregateStage, JoinStage, TransformStage,
 from ..runtime import columns as C
 from ..runtime import xferstats
 from ..runtime.torchcfg import handoff_budget_bytes
+from . import compilequeue
 
 _WINDOW = 2   # partitions dispatched ahead of the one being merged
 
@@ -150,6 +155,7 @@ class LocalBackend:
                                                    consumer)
         t0 = time.perf_counter()
         snap = xferstats.snapshot()
+        cq_snap = compilequeue.snapshot()
         handoff = Handoff(self.handoff_budget, consumer)
         metrics: dict[str, Any] = {k: 0 for k in _SUMMED}
         out_parts: list = []
@@ -179,6 +185,8 @@ class LocalBackend:
         metrics["exception_rows"] = len(exceptions)
         metrics.update(handoff.metrics())
         metrics.update(xferstats.since(snap))
+        metrics.update(compilequeue.stage_metrics(
+            compilequeue.delta(cq_snap)))
         return StageResult(out_parts, exceptions, metrics)
 
     # ------------------------------------------------------------------
@@ -186,16 +194,17 @@ class LocalBackend:
                             compaction: Optional[bool] = None,
                             fold: bool = True):
         """Stage the batch and queue the stage function's device work
-        without waiting for it. Returns (part, outs | None, seconds)."""
+        without waiting for it, through the compile plane (a replay of the
+        stage's graph for this key, else a capture or an eager run).
+        Returns (part, outs | None, seconds)."""
         if stage.not_compilable or part.n_normal() == 0:
             return (part, None, 0.0)
         if compaction is None:
             compaction = not stage.compaction_off
         t0 = time.perf_counter()
-        batch = C.stage_partition(part, self.device)
         try:
-            outs = stage.build_device_fn(part.schema, compaction=compaction,
-                                         fold=fold)(batch.arrays)
+            outs = compilequeue.run_stage(stage, part, self.device,
+                                          compaction, fold)
         except NotCompilable:
             stage.not_compilable = True
             return (part, None, time.perf_counter() - t0)

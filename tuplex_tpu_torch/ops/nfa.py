@@ -396,7 +396,7 @@ class NFARegex:
         lens64, end_at = self._end_masks(bytes_, lens)
         S = torch.full((n, P), INF, dtype=I32, device=dev)
         best = torch.full((n,), INF, dtype=I32, device=dev)
-        inf = torch.tensor(INF, dtype=I32, device=dev)
+        inf = torch.full((), INF, dtype=I32, device=dev)
         for j in range(w):
             cm = cmtab[bytes_[:, j].to(I64)]
             nxt = (S[:, :, None] + cost[None, :, :]).amin(dim=1)

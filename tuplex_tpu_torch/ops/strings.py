@@ -142,10 +142,12 @@ def non_ascii_rows(bytes_, lens):
 
 
 def table_lookup(table, idx):
-    """table[idx] for a small (<= 256-entry) lookup table and integer
-    indices of any shape: the byte-classification primitive."""
-    table = torch.as_tensor(table, device=idx.device)
-    return table[idx.to(torch.int64)]
+    """table[idx] for a small (<= 256-entry) lookup table (a numpy array)
+    and integer indices of any shape: the byte-classification primitive.
+    The table is copied to the device once (`_on`, keyed by its bytes)."""
+    arr = np.ascontiguousarray(table)
+    name = f"table:{arr.dtype.str}:{arr.shape}:{arr.tobytes().hex()}"
+    return _on(idx.device, name, arr)[idx.to(torch.int64)]
 
 
 def contains_const(bytes_, lens, needle: str):

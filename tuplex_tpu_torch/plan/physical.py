@@ -267,7 +267,13 @@ class TransformStage:
         under the decode's general-case types (`_emit_decode`), the
         columns in `str_cols` (positions in the decode) as Option[str],
         with no compaction and no fused fold. Raises NotCompilable at once
-        when the stage has no general-case decode."""
+        when the stage has no general-case decode.
+
+        The compile plane (exec/compilequeue.py) captures the function
+        once per key and replays it, so what it decides in Python must
+        follow from the key (the operators, the flags, the input shapes):
+        a decision it makes from stage state enters the key, as
+        `fold_failed` does."""
         schema = input_schema if input_schema is not None \
             else self.input_schema
         ops = self.ops

@@ -411,37 +411,45 @@ def _leaf_keys(path: str, leaf):
     return keys
 
 
-def stage_partition(part: Partition, device: torch.device) -> DeviceBatch:
-    """Pad the partition's leaves to bucket shapes and copy them to
-    `device`; a partition with a device view gets the view's arrays (in a
-    dict of its own), which are those same arrays."""
-    view = part.device
-    if view is not None:
-        return DeviceBatch(arrays=dict(view.arrays), n=view.n, b=view.b)
+def host_arrays(part: Partition) -> dict[str, np.ndarray]:
+    """{key: padded host array}: the leaves of a partition without a
+    device view, padded to bucket shapes, as `stage_partition` copies them
+    to the device."""
     n = part.num_rows
     b = bucket_size(n)
-    arrays: dict[str, torch.Tensor] = {}
-
-    def put(a: np.ndarray) -> torch.Tensor:
-        return to_device(a, device)
-
+    arrays: dict[str, np.ndarray] = {}
     for path, leaf in part.leaves.items():
         ks = _leaf_keys(path, leaf)
         if not ks:   # NullLeaf (layout-free) or host-only ObjectLeaf
             continue
         if isinstance(leaf, NumericLeaf):
-            arrays[path] = put(pad_to(leaf.data, b))
+            arrays[path] = pad_to(leaf.data, b)
         else:
             wb = bucket_size(max(leaf.width, 1))
-            arrays[path + "#bytes"] = put(pad_to(pad_to(leaf.bytes, b, 0),
-                                                 wb, 1))
-            arrays[path + "#len"] = put(pad_to(leaf.lengths, b))
+            arrays[path + "#bytes"] = pad_to(pad_to(leaf.bytes, b, 0), wb, 1)
+            arrays[path + "#len"] = pad_to(leaf.lengths, b)
         if path + "#valid" in ks:
-            arrays[path + "#valid"] = put(pad_to(leaf.valid, b))
+            arrays[path + "#valid"] = pad_to(leaf.valid, b)
     rowvalid = np.zeros(b, dtype=np.bool_)
     rowvalid[:n] = True if part.normal_mask is None else part.normal_mask
-    arrays["#rowvalid"] = put(rowvalid)
-    return DeviceBatch(arrays=arrays, n=n, b=b)
+    arrays["#rowvalid"] = rowvalid
+    return arrays
+
+
+def stage_partition(part: Partition, device: torch.device,
+                    host: Optional[dict] = None) -> DeviceBatch:
+    """Pad the partition's leaves to bucket shapes and copy them to
+    `device` (`host`: its `host_arrays`, where the caller has them); a
+    partition with a device view gets the view's arrays (in a dict of its
+    own), which are those same arrays."""
+    view = part.device
+    if view is not None:
+        return DeviceBatch(arrays=dict(view.arrays), n=view.n, b=view.b)
+    if host is None:
+        host = host_arrays(part)
+    return DeviceBatch(
+        arrays={k: to_device(a, device) for k, a in host.items()},
+        n=part.num_rows, b=bucket_size(part.num_rows))
 
 
 def stage_rows(part: Partition, idx: np.ndarray,

@@ -4,9 +4,9 @@
 `COUNTS` grows over the process; an executor takes a `snapshot()` when a
 stage starts and reports `since(snapshot)` in the stage's metrics. The
 counts cover the executors' copies of leaves, stage outputs, row gathers
-and row indices (`to_device`, `to_host`), not scalars or the emitter's
-constants. They are kept on the CPU device as well, so the tests there
-see the copies the card would make.
+and row indices (`to_device`, `copy_to_device`, `to_host`), not scalars
+or the emitter's constants. They are kept on the CPU device as well, so
+the tests there see the copies the card would make.
 
 With `TIMED` set (a measurement, off on the main path) every copy first
 waits for the device's queued work, timed as `wait_s`, then copies and
@@ -50,6 +50,14 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     COUNTS["h2d_bytes"] += a.nbytes
     device = torch.device(device)
     return _copy(lambda: torch.from_numpy(a).to(device), device)
+
+
+def copy_to_device(dst: torch.Tensor, a: np.ndarray) -> None:
+    """A host array copied into the device tensor `dst` (of its shape and
+    dtype), counted."""
+    a = np.ascontiguousarray(a)
+    COUNTS["h2d_bytes"] += a.nbytes
+    _copy(lambda: dst.copy_(torch.from_numpy(a)), dst.device)
 
 
 def to_host(t: torch.Tensor, copy: bool = False) -> np.ndarray:
