@@ -21,8 +21,10 @@ script's elapsed time is printed at the end of each phase:
      (NFARegex.match_start_plain), exactly in matched and start: on the
      matrix (and re.search(...).start()), the random matrices with
      patterns of 2 to 32 positions (the status grep's second pass and a
-     leading class run among them) and the edge inputs; timed on the
-     random matrix;
+     leading class run among them) and the edge inputs, each with no live
+     mask, with the NFA scan's own result and with a seeded 22% mask;
+     timed on the random matrix with every row live, beside the time
+     PERF.md records for the kernel this one replaced;
   4. the dual-mode smoke pipeline through Context() on the card (its None
      row leaves through the exact exit);
   5. the log grep over 1,891,715 generated Apache log lines (seed 17, one
@@ -44,7 +46,10 @@ script's elapsed time is printed at the end of each phase:
      launch both kernels; the regex variant runs once more under
      torch.profiler for the card's busy time and idle share. The start
      kernel is then held against its plain version on the largest input
-     the status grep gave it and timed;
+     the status grep gave it, with the live mask the path gave it (the
+     NFA scan's result), with every row live and with none, and timed
+     with its mask and with every row live, each beside the bound of its
+     work and the replaced kernel's recorded time;
   6. Zillow Z1 over 1,000,000 generated rows (seed 42, about 148 MB of
      CSV): the CSV source timed apart (read; split and byte matrices with
      the native module and with the numpy path, whose arrays and
@@ -254,6 +259,11 @@ START_EDGE_PATTERNS = [logs.STATUS_GROUPS, r"\S+x", "b$", "[ab]" * 32]
 # positions
 EARLIER_MS = {"log-grep batch": 0.1118, logs.ERROR_STATUS: 0.2972,
               "[ab]" * 64: 2.036}
+# ms of the start kernel this one replaced (every row scanned, 64-bit
+# tables), as PERF.md records it (H100 80GB HBM3, 700 W): the status
+# grep's largest input, random rows with 8, 3 and 32 positions
+EARLIER_START_MS = {"status grep input": 0.0577, logs.STATUS_GROUPS: 0.1205,
+                    r"\S+x": 0.1077, "[ab]" * 32: 0.1722}
 # ms of the one-thread-per-segment general fold (PR 15) on the seeded
 # batches and on G2's largest input, as PERF.md records them (H100 80GB
 # HBM3, 700 W)
@@ -371,12 +381,13 @@ def check_kernel(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
     return err
 
 
-def check_start(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
-    """The start kernel against match_start_plain on the same tensors;
-    returns the largest absolute difference of matched and start (0 =
-    identical)."""
-    m, st = rx.match_start(b, l)
-    pm, pst = rx.match_start_plain(b, l)
+def check_start(rx, b: torch.Tensor, l: torch.Tensor, what: str,
+                live=None) -> int:
+    """The start kernel against match_start_plain on the same tensors and
+    live mask; returns the largest absolute difference of matched and
+    start (0 = identical)."""
+    m, st = rx.match_start(b, l, live=live)
+    pm, pst = rx.match_start_plain(b, l, live)
     torch.cuda.synchronize()
     err = max(int((m.to(torch.int32) - pm.to(torch.int32)).abs().max()),
               int((st - pst).abs().max()))
@@ -385,11 +396,38 @@ def check_start(rx, b: torch.Tensor, l: torch.Tensor, what: str) -> int:
     return err
 
 
-def start_bound_ms(l: torch.Tensor, width: int) -> float:
-    """The start scan's bytes: each row's in-length bytes read once, 4 B
-    of length in and 5 B out (matched, start) a row, at the memory rate."""
+def start_bound_ms(l: torch.Tensor, width: int, live=None) -> float:
+    """The start scan's bytes at the memory rate: each live row's
+    in-length bytes and its 4 B length read once, the 1 B mask read (when
+    there is one) and 5 B (matched, start) written for every row. A dead
+    row's length and bytes are not needed."""
+    n = l.shape[0]
+    if live is not None:
+        l = l[live]
     need = int(torch.clamp(l, 0, width).to(torch.int64).sum())
-    return (need + 9 * l.shape[0]) / HBM_BYTES_PER_S * 1e3
+    return (need + 4 * l.shape[0] + (0 if live is None else n) + 5 * n) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def start_masks(rx, b: torch.Tensor, l: torch.Tensor, seed: int) -> dict:
+    """Live masks for the start kernel's checks: none, the NFA scan's own
+    result (the main path's), and a seeded 22% of the rows."""
+    rng = np.random.default_rng(seed)
+    return {"no mask": None, "the scan's mask": rx.match(b, l),
+            "22% live": torch.from_numpy(
+                rng.random(b.shape[0]) < 0.22).to(b.device)}
+
+
+def start_variant_line() -> str:
+    """The start kernel's variant at 1-4 follow chunks (16-byte copies, no
+    '$'): table layout, threads and blocks per SM."""
+    out = []
+    for k in (1, 2, 3, 4):
+        v = nfa_cuda.start_variant(k)
+        out.append(f"{k} chunk(s): "
+                   f"{'lane-replicated' if v.replicated else 'plain'} "
+                   f"tables, {v.blocks_per_sm} block(s) of {v.threads}/SM")
+    return f"nfa_start variants on {v.sms} SMs: " + "; ".join(out)
 
 
 def start_kernel_phase(mb, ml, rb, rl, edges) -> int:
@@ -397,6 +435,7 @@ def start_kernel_phase(mb, ml, rb, rl, edges) -> int:
     plain version (and re.search(...).start() on the matrix) on the
     matrix, the random matrices and the edge inputs; timed on the random
     matrix. Returns the largest difference."""
+    print(start_variant_line())
     max_err = 0
     for pat in START_MATRIX_PATTERNS:
         rx = compile_nfa(pat)
@@ -407,26 +446,31 @@ def start_kernel_phase(mb, ml, rb, rl, edges) -> int:
             raise AssertionError(f"start of {pat!r} != re")
         max_err = max(max_err, check_start(rx, mb, ml, repr(pat)))
     for pat in START_RANDOM_PATTERNS:
-        max_err = max(max_err, check_start(compile_nfa(pat), rb, rl,
-                                           repr(pat)))
+        rx = compile_nfa(pat)
+        for what, live in start_masks(rx, rb, rl, 1).items():
+            max_err = max(max_err, check_start(rx, rb, rl,
+                                               f"{pat!r}, {what}", live))
     for pat in START_EDGE_PATTERNS:
         rx = compile_nfa(pat)
         for what, b, l in edges:
-            max_err = max(max_err, check_start(rx, b, l,
-                                               f"{pat!r} on {what}"))
+            for mask, live in start_masks(rx, b, l, 2).items():
+                max_err = max(max_err, check_start(
+                    rx, b, l, f"{pat!r} on {what}, {mask}", live))
     print(f"start kernel == plain on {len(START_MATRIX_PATTERNS)} x "
           f"{len(MATRIX_STRINGS)} matrix (== re's start), "
           f"{len(START_RANDOM_PATTERNS)} patterns over {RANDOM_ROWS} x "
           f"{RANDOM_WIDTH} random rows and {len(START_EDGE_PATTERNS)} "
-          f"patterns over the edge inputs")
+          f"patterns over the edge inputs, each with no mask, the scan's "
+          f"mask and a 22% mask")
     for pat in (logs.STATUS_GROUPS, r"\S+x", "[ab]" * 32):
         rx = compile_nfa(pat)
         ms, call_ms = kernel_device_ms(lambda: rx.match_start(rb, rl), 20)
         plain_ms = cuda_ms(lambda: rx.match_start_plain(rb, rl), 1)
         print(f"nfa_start at [{RANDOM_ROWS}, {RANDOM_WIDTH}] random rows, "
-              f"{rx.n_pos} positions ({pat[:24]!r}): kernel {ms:.4f} ms "
-              f"({call_ms:.4f} ms of host time per wrapper call), plain "
-              f"{plain_ms:.2f} ms, bound "
+              f"{rx.n_pos} positions ({pat[:24]!r}), every row live: "
+              f"kernel {ms:.4f} ms (earlier kernel "
+              f"{EARLIER_START_MS[pat]} ms; {call_ms:.4f} ms of host time "
+              f"per wrapper call), plain {plain_ms:.2f} ms, bound "
               f"{start_bound_ms(rl, RANDOM_WIDTH):.4f} ms")
     return max_err
 
@@ -511,8 +555,11 @@ def weblogs_phase(path: str, dev) -> tuple[int, int, dict]:
         want, loop_s = timed(loop)
         ctx = Context()
         nfa_cuda.launches = nfa_cuda.start_launches = RX.calls = 0
+        # copies: a graph's replays overwrite what its warm-up was given
         with recording(nfa_cuda, "match_start_cuda", starts,
-                       lambda tables, buf, b, l: (b, l)):
+                       lambda tables, buf, b, l, live=None:
+                       (b.clone(), l.clone(),
+                        None if live is None else live.clone())):
             t0 = time.perf_counter()
             got = build(ctx.text(path)).collect()
             torch.cuda.synchronize()
@@ -547,19 +594,33 @@ def weblogs_phase(path: str, dev) -> tuple[int, int, dict]:
                           (wall, m, counts))
     print(f"weblogs: the port's engine marks {suspects} ASCII lines "
           f"suspect and unmatched")
-    b, l = max(starts, key=lambda bl: bl[0].shape[0])
+    b, l, live = max(starts, key=lambda bl: bl[0].shape[0])
     del starts
     rx = compile_nfa(logs.STATUS_GROUPS)
-    err = check_start(rx, b, l, "the status grep's largest input")
-    ms, call_ms = kernel_device_ms(lambda: rx.match_start(b, l), 50)
-    plain_ms = cuda_ms(lambda: rx.match_start_plain(b, l), 3)
-    bound = start_bound_ms(l, b.shape[1])
-    print(f"nfa_start at the status grep's largest input [{b.shape[0]}, "
-          f"{b.shape[1]}]: kernel {ms:.4f} ms ({call_ms:.4f} ms of host "
-          f"time per wrapper call), plain {plain_ms:.4f} ms, bound "
-          f"{bound:.4f} ms; kernel == plain")
-    return start_launches, err, {"ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound}
+    if live is None or not torch.equal(live, rx.match(b, l)):
+        raise AssertionError("status grep: the start kernel was not given "
+                             "the NFA scan's result as its live mask")
+    every = torch.ones_like(live)
+    err = 0
+    for what, mask in (("its mask", live), ("every row live", every),
+                       ("no row live", torch.zeros_like(live))):
+        err = max(err, check_start(rx, b, l, f"the status grep's largest "
+                                   f"input, {what}", mask))
+    nums = {}
+    for what, mask in (("its mask", live), ("every row live", every)):
+        ms, call_ms = kernel_device_ms(
+            lambda: rx.match_start(b, l, live=mask), 50)
+        plain_ms = cuda_ms(lambda: rx.match_start_plain(b, l, mask), 3)
+        bound = start_bound_ms(l, b.shape[1], mask)
+        print(f"nfa_start at the status grep's largest input [{b.shape[0]}, "
+              f"{b.shape[1]}], {what} ({int(mask.sum())} rows live): kernel "
+              f"{ms:.4f} ms (earlier kernel, every row scanned, "
+              f"{EARLIER_START_MS['status grep input']} ms; {call_ms:.4f} ms "
+              f"of host time per wrapper call), plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms; kernel == plain")
+        if not nums:   # the main path's input: with the scan's mask
+            nums = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+    return start_launches, err, nums
 
 
 @contextlib.contextmanager

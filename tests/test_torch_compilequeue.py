@@ -10,6 +10,7 @@ processes.
 """
 
 import contextlib
+import gc
 import linecache
 import sys
 import types
@@ -333,3 +334,34 @@ def test_helpers_of_a_module_without_a_file_key_by_content(monkeypatch):
         assert ctx.metrics.stageCompileCount() == 1
         cell(n, "def helper(x):\n    return x * 5 - 2\n")
     assert len(CQ.STORE) == 2
+
+
+@pytest.mark.parametrize("job", ["strip", "regex", "status grep"])
+def test_a_job_leaves_no_tensor_in_a_cycle(tmp_path, job):
+    """A captured stage's intermediate tensors die with its graph: none is
+    held by a reference cycle, which would keep their blocks of a graph
+    pool on the card until the cyclic collector ran, past the graph's
+    eviction. Checked with the collector off during the job, then every
+    unreachable object kept for inspection."""
+    path = str(tmp_path / "a.log")
+    logs.generate_log(path, 1500, seed=17)
+    conf = {"tuplex.partitionSize": "32KB"}
+    gc.collect()
+    gc.disable()
+    try:
+        ctx = tuplex_tpu_torch.Context(device="cpu", conf=conf)
+        ds = ctx.text(path)
+        ds = logs.build_status_grep(ds) if job == "status grep" else \
+            logs.build_pipeline(ds, job)
+        assert ds.collect()
+        assert ctx.metrics.graphReplays() > 0
+        CQ.clear()
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        held = [tuple(o.shape) for o in gc.garbage
+                if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert held == []

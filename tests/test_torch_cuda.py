@@ -50,14 +50,18 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _random_batch(seed: int, n: int, w: int):
+def _random_batch(seed: int, n: int, w: int, lens=None):
+    """Seeded rows [n, w] over a small alphabet (a tenth of them any
+    byte), zero past their lengths: `lens` (int32 [n]) or random in
+    [0, w]."""
     rng = np.random.default_rng(seed)
     alphabet = np.frombuffer(b'ab cxGETPOS"45\n09z', dtype=np.uint8)
     mat = alphabet[rng.integers(0, len(alphabet), size=(n, w))]
     wide = rng.random(n) < 0.1
     mat[wide] = rng.integers(0, 256, size=(int(wide.sum()), w),
                              dtype=np.uint8)
-    lens = rng.integers(0, w + 1, size=n).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(0, w + 1, size=n).astype(np.int32)
     runs = rng.random(n) < 0.05
     mat[runs] = np.frombuffer(b"ab", dtype=np.uint8)[
         rng.integers(0, 2, size=(int(runs.sum()), w))]
@@ -138,20 +142,37 @@ START_PATTERNS = [logs.STATUS_GROUPS, r"\S+x", "a+b$", "GET|POST",
                   "^a.*b$", "[ab]" * 32, "b\n?$", "x$", logs.ERROR_LINE]
 
 
-def _check_start(rx, pattern, b, l):
-    """The start kernel on CUDA tensors b, l against match_start_plain on
-    the same tensors and against re.search(...).start() on their rows;
-    one launch per call."""
+def _check_start(rx, pattern, b, l, live=None):
+    """The start kernel on CUDA tensors b, l (rows where the bool mask
+    `live` is True, or all) against match_start_plain on the same tensors
+    and against re.search(...).start() on their rows; one launch per
+    call."""
     before = nfa_cuda.start_launches
-    m, s = rx.match_start(b, l)
+    m, s = rx.match_start(b, l, live=live)
     assert nfa_cuda.start_launches == before + 1
-    pm, ps = rx.match_start_plain(b, l)
+    pm, ps = rx.match_start_plain(b, l, live)
     assert torch.equal(m, pm) and torch.equal(s, ps)
     mat, lens = b.cpu().numpy(), l.cpu().numpy()
+    keep = [True] * len(lens) if live is None else live.cpu().tolist()
     rows = [bytes(r[:k]) for r, k in zip(mat, lens)]
-    py = [re.search(pattern.encode(), r) for r in rows]
+    py = [re.search(pattern.encode(), r) if k else None
+          for r, k in zip(rows, keep)]
     assert m.tolist() == [x is not None for x in py]
     assert s.tolist() == [x.start() if x else 0 for x in py]
+
+
+def _start_masks(rx, b, l, seed: int) -> dict:
+    """Live masks on b's device: all, none, 1%, 22% and 90% of the rows
+    (seeded), and the NFA scan's own result."""
+    n = b.shape[0]
+    rng = np.random.default_rng(seed)
+    out = {"all": torch.ones(n, dtype=torch.bool, device=b.device),
+           "none": torch.zeros(n, dtype=torch.bool, device=b.device),
+           "scan's own": rx.match(b, l)}
+    for frac in (0.01, 0.22, 0.9):
+        out[f"{frac:.0%}"] = torch.from_numpy(rng.random(n) < frac).to(
+            b.device)
+    return out
 
 
 # 8-byte rows (4-byte loads), bytes, 16-byte loads, eight column chunks;
@@ -200,7 +221,7 @@ def test_start_kernel_block_and_alignment_edges(pattern, cuda_device):
 @pytest.mark.cuda
 def test_start_wrapper_rejects_bad_inputs(cuda_device):
     t = port_nfa.compile_nfa("abc").tables
-    buf = torch.from_numpy(nfa_cuda.pack_start_tables(t).view(np.int64)).to(
+    buf = torch.from_numpy(nfa_cuda.pack_start_tables(t).view(np.int32)).to(
         cuda_device)
     b = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
     l = torch.zeros(4, dtype=torch.int32, device=cuda_device)
@@ -215,6 +236,163 @@ def test_start_wrapper_rejects_bad_inputs(cuda_device):
     big = port_nfa.compile_nfa("[ab]" * 33).tables
     with pytest.raises(ValueError):
         nfa_cuda.match_start_cuda(big, buf, b, l)
+    # the packed tables are 32-bit: a 64-bit buffer is refused
+    wide = torch.zeros(256 * 2 + 2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(t, wide, b, l)
+    # the live mask: bool, [N], contiguous, on the rows' device
+    live = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        nfa_cuda.match_start_cuda(t, buf, b, l, live.to(torch.uint8))
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(t, buf, b, l, live[:3])
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(t, buf, b, l, live.cpu())
+    with pytest.raises(ValueError):
+        nfa_cuda.match_start_cuda(
+            t, buf, b, l, torch.ones(8, dtype=torch.bool,
+                                     device=cuda_device)[::2])
+
+
+# 1 to 4 follow chunks, with and without '$'
+START_CHUNK_PATTERNS = [logs.STATUS_GROUPS, "a+b$", "[ab]" * 16,
+                        "[ab]" * 15 + "b$", "[ab]" * 24, "[ab]" * 23 + "$",
+                        "[ab]" * 32, "[ab]" * 31 + "b$"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [75, 96, 128, 1000])
+@pytest.mark.parametrize("pattern", START_CHUNK_PATTERNS)
+def test_start_kernel_live_masks(pattern, w, cuda_device):
+    """Every mask (all, none, 1%, 22%, 90%, the scan's own) and no mask,
+    over byte loads (75), 16-byte loads (96, 128) and 16 column chunks
+    (1000); lane-replicated tables at one follow chunk, plain past it."""
+    mat, lens = _random_batch(29, 4100, w)
+    b = torch.from_numpy(mat).to(cuda_device)
+    l = torch.from_numpy(lens).to(cuda_device)
+    rx = port_nfa.compile_nfa(pattern)
+    _check_start(rx, pattern, b, l, None)
+    for live in _start_masks(rx, b, l, w).values():
+        _check_start(rx, pattern, b, l, live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [logs.STATUS_GROUPS, "a+b$",
+                                     "[ab]" * 16, "[ab]" * 15 + "b$"])
+def test_start_kernel_short_round_then_long(pattern, cuda_device):
+    """Rounds of rows that fit one 64-byte column chunk followed by rounds
+    of longer rows, every row live: a round of one chunk starts the next
+    round's set-up straight after its own, so the block's per-warp maxima
+    must not be overwritten while another warp still reads them. One
+    window, then eight with short and long rounds in turn; each launched
+    several times. Lane-replicated tables (one chunk) and plain (two),
+    with and without '$'."""
+    rx = port_nfa.compile_nfa(pattern)
+    v = nfa_cuda.start_variant((rx.n_pos + 7) // 8, rx.tables.anchored_end)
+    R, K = v.threads, v.window
+    rng = np.random.default_rng(41)
+    for n in (K, 8 * K):
+        short = (np.arange(n) // R) % 2 == 0
+        lens = np.where(short, rng.integers(1, 65, size=n),
+                        rng.integers(65, 97, size=n)).astype(np.int32)
+        mat, lens = _random_batch(43 + n, n, 96, lens)
+        b = torch.from_numpy(mat).to(cuda_device)
+        l = torch.from_numpy(lens).to(cuda_device)
+        pm, ps = rx.match_start_plain(b, l, None)
+        for live in (None, torch.ones(n, dtype=torch.bool,
+                                      device=cuda_device)):
+            for _ in range(10):
+                m, st = rx.match_start(b, l, live=live)
+                assert torch.equal(m, pm) and torch.equal(st, ps)
+        _check_start(rx, pattern, b, l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [logs.STATUS_GROUPS, "a+b$",
+                                     "[ab]" * 24])
+def test_start_kernel_window_edges(pattern, cuda_device):
+    """Row counts around the round (R) and the candidate window (K) of
+    the variant the pattern takes, and masks that leave a window 0, 1 or
+    all of its rows; bases that are not 16-byte aligned, with a mask."""
+    rx = port_nfa.compile_nfa(pattern)
+    v = nfa_cuda.start_variant((rx.n_pos + 7) // 8, rx.tables.anchored_end)
+    R, K = v.threads, v.window
+    assert K > R
+    for n in (1, R - 1, R, R + 1, K - 1, K, K + 1, 2 * K + R + 3):
+        mat, lens = _random_batch(31 + n, n, 96)
+        b = torch.from_numpy(mat).to(cuda_device)
+        l = torch.from_numpy(lens).to(cuda_device)
+        idx = torch.arange(n, device=cuda_device)
+        masks = list(_start_masks(rx, b, l, n).values()) + [
+            idx == n // 2,                        # one live row
+            (idx // K) % 2 == 1,                  # windows dead, then live
+            (idx % K) == K - 1]                   # each window's last row
+        for live in masks:
+            _check_start(rx, pattern, b, l, live)
+    mat, lens = _random_batch(5, 301, 75)
+    b = torch.from_numpy(mat).to(cuda_device)[1:]
+    l = torch.from_numpy(lens[1:]).to(cuda_device)
+    assert b.is_contiguous() and b.data_ptr() % 16 != 0
+    for live in _start_masks(rx, b, l, 1).values():
+        _check_start(rx, pattern, b, l, live)
+    mat, lens = _random_batch(6, 300, 128)
+    flat = torch.zeros(4 + mat.size, dtype=torch.uint8, device=cuda_device)
+    flat[4:] = torch.from_numpy(mat.ravel()).to(cuda_device)
+    b = flat[4:].view(300, 128)
+    l = torch.from_numpy(lens).to(cuda_device)
+    assert b.data_ptr() % 16 == 4
+    for live in _start_masks(rx, b, l, 2).values():
+        _check_start(rx, pattern, b, l, live)
+    # lengths past the width, the last row's too: the bytes stop at W and
+    # '$' goes by the length, as in the plain version (not `re` on the
+    # cut row); the copies stay inside the matrix
+    mat, lens = _random_batch(7, 300, 96)
+    lens[::3] = 97 + np.arange(len(lens[::3])) % 2
+    lens[-1] = 98
+    b = torch.from_numpy(mat).to(cuda_device)
+    l = torch.from_numpy(lens).to(cuda_device)
+    for live in [None, *_start_masks(rx, b, l, 3).values()]:
+        m, st = rx.match_start(b, l, live=live)
+        pm, pst = rx.match_start_plain(b, l, live)
+        assert torch.equal(m, pm) and torch.equal(st, pst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [None, 0.22, 0.9])
+def test_start_kernel_many_windows_a_block(frac, cuda_device):
+    """Enough rows that every block of the persistent grid compacts
+    several windows and carries rows over between rounds."""
+    v = nfa_cuda.start_variant(1)
+    n = 3 * v.blocks_per_sm * v.sms * v.window + 7
+    mat, lens = _random_batch(37, n, 96)
+    b = torch.from_numpy(mat).to(cuda_device)
+    l = torch.from_numpy(lens).to(cuda_device)
+    live = None if frac is None else torch.from_numpy(
+        np.random.default_rng(3).random(n) < frac).to(cuda_device)
+    for pattern in (logs.STATUS_GROUPS, "a+b$"):
+        rx = port_nfa.compile_nfa(pattern)
+        before = nfa_cuda.start_launches
+        m, s = rx.match_start(b, l, live=live)
+        assert nfa_cuda.start_launches == before + 1
+        pm, ps = rx.match_start_plain(b, l, live)
+        assert torch.equal(m, pm) and torch.equal(s, ps)
+
+
+@pytest.mark.cuda
+def test_start_variants(cuda_device):
+    """Lane-replicated tables at one follow chunk, one block of 1024 rows
+    an SM; plain tables at 2-4 chunks, at least 2 blocks of 256 rows an
+    SM; with and without '$'."""
+    for end in (False, True):
+        for n_chunks in (1, 2, 3, 4):
+            v = nfa_cuda.start_variant(n_chunks, end)
+            if n_chunks == 1:
+                assert (v.replicated, v.blocks_per_sm, v.threads) == \
+                    (True, 1, 1024)
+            else:
+                assert (v.replicated, v.threads) == (False, 256)
+                assert v.blocks_per_sm >= 2
+            assert v.window > v.threads
 
 
 @pytest.mark.cuda

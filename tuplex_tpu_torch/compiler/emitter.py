@@ -461,7 +461,8 @@ class Frame:
 
             def _two_pass():
                 if not cell:
-                    matched, start = nfa.match_start(sb, sl)
+                    # the start scan needs only the rows the scan matched
+                    matched, start = nfa.match_start(sb, sl, live=valid)
                     shb, shl = S.slice_(sb, sl, start, sl)
                     am, suspect, gs, ge = rx2.match(shb, shl)
                     # the anchored engine's one retreat level may fall
@@ -486,10 +487,14 @@ class Frame:
         # lazily, so a consumer of the truth value alone keeps every row.
         # Group 0 (the whole match) keeps the full width.
         cell = []
+        # the closure holds no Frame: the Frame's env holds the closure,
+        # and a cycle would keep its tensors (in a graph pool, on the card)
+        # alive until the cyclic collector runs
+        zeros = self.ctx.zeros
 
         def _groups():
             if not cell:
-                over = self.ctx.zeros()
+                over = zeros()
                 for g in range(1, rx.n_groups + 1):
                     over = over | (ge[g] - gs[g] > _GROUP_WIN)
                 cell.append((_group_cvs(sb, sl, gs, ge, _GROUP_WIN),

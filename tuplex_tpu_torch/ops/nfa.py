@@ -330,10 +330,14 @@ class NFARegex:
 
     _START_MAX_POS = 32   # the reference's cap for start tracking
 
-    def match_start(self, bytes_: torch.Tensor, lens: torch.Tensor):
+    def match_start(self, bytes_: torch.Tensor, lens: torch.Tensor,
+                    live: torch.Tensor | None = None):
         """(matched [N] bool, start [N] int32): the LEFTMOST match start,
         which is where CPython's re.search finds its match (start 0 where
-        there is none). CUDA tensors go to the hand-written kernel
+        there is none). `live`, a bool [N] or None, limits the scan to
+        its rows: a row where it is False gives (False, 0). The two-pass
+        capture path passes this pattern's `match`, so only matched rows
+        are scanned. CUDA tensors go to the hand-written kernel
         (ops/nfa_cuda.py `match_start_cuda`), CPU tensors to
         `match_start_plain`. Nullable patterns (a zero-width match) and
         patterns of no or more than 32 positions raise NotCompilable, as
@@ -344,8 +348,9 @@ class NFARegex:
 
             return nfa_cuda.match_start_cuda(
                 self.tables, self._start_tables(bytes_.device),
-                bytes_.contiguous(), lens.contiguous())
-        return self.match_start_plain(bytes_, lens)
+                bytes_.contiguous(), lens.contiguous(),
+                None if live is None else live.contiguous())
+        return self.match_start_plain(bytes_, lens, live)
 
     def _check_start(self) -> None:
         if self.nullable:
@@ -363,10 +368,10 @@ class NFARegex:
 
             hit = self._kernel_bufs[key] = torch.from_numpy(
                 nfa_cuda.pack_start_tables(self.tables).view(
-                    np.int64)).to(device)
+                    np.int32)).to(device)
         return hit
 
-    def match_start_plain(self, bytes_, lens):
+    def match_start_plain(self, bytes_, lens, live=None):
         """Plain torch version of the start scan, the reference package's
         min-plus formulation: S [N, P] holds for each NFA position the
         earliest seed column that reaches it (INF = inactive), and per
@@ -376,7 +381,9 @@ class NFARegex:
                     where the byte is in class(p), else INF
             best  = min(best, min over p in LAST of S'[p])  (subject to $)
 
-        It holds the CUDA kernel to the reference's function."""
+        `live` (bool [N] or None) is applied to the result: (False, 0)
+        where it is False. It holds the CUDA kernel to the reference's
+        function."""
         self._check_start()
         t = self.tables
         n, w = bytes_.shape
@@ -413,6 +420,8 @@ class NFARegex:
             S = S2
             best = torch.minimum(best, hit)
         matched = best < INF
+        if live is not None:
+            matched = matched & live
         return matched, torch.where(matched, best, 0).to(I32)
 
     def match_bitmask(self, bytes_, lens):
