@@ -89,7 +89,9 @@ script's elapsed time is printed at the end of each phase:
      sample typed null) finished by the general-case tier, none
      interpreted; every join probed on the card, the kernel launched on
      the path, and held against its plain version on the largest probe
-     the path gave it;
+     the path gave it. Under the default options the defunct-airline
+     filter runs in a stage of its own between the carrier join and the
+     Origin join (plan/optimizer.py push_filters_through_joins);
  10. TPC-H Q19 over 200,000 parts (SF1's part table) and 1,000,000
      lineitems (seed 19), twice, within 1e-9 relative of the plain loop and
      the same bits both runs, every row probed on the card through the
@@ -117,7 +119,23 @@ script's elapsed time is printed at the end of each phase:
      both times printed; the kernel re-checked and timed on the largest
      input G2 gave it; G1-G3 on the 2,000-row dirty file
      against the loops, exception counts included;
- 13. every entry point of the native module against its Python path on
+ 13. the planner at full size, over phase 9's and phase 5's files: (a)
+     flights under the defaults, the defunct filter pushed through the
+     Origin and Dest left joins into a stage of its own, and once more
+     with tuplex.optimizer.filterPushdown off, both equal to the loop,
+     each with its stage list, the rows into the carrier, Origin and Dest
+     joins (with pushdown the Origin and Dest joins must see exactly the
+     rows the filter keeps, fewer than without), the join probe's
+     launches and its wall; (b) the log grep with a map the emitter
+     refuses (len(set(x))) and a compiled map after it: three segments,
+     the middle one on the interpreter with exactly the rows the grep
+     keeps, the NFA scan launched once on every partition, rows equal to
+     the loop; (c) take(10) of the log grep: the loop's first 10 rows, the
+     scan launched on fewer partitions than the file has; (d) cache() of
+     the grep's lines and two maps over it, each equal to its loop, the
+     source read once; (e) show(5) of a map over the cache, equal to the
+     reference's format for the loop's first 5 rows;
+ 14. every entry point of the native module against its Python path on
      small inputs. The run fails unless the main path (phases 4-7) called
      the native entry points it uses and every entry point was called.
 
@@ -164,6 +182,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import io
 import json
 import os
 import re
@@ -1337,7 +1356,8 @@ def recording_probes(inputs: list):
 def flights_phase(tmp: str):
     """Flights on the card against the plain loop on the same files.
     Returns (kernel launches in the pipeline's run, the probe inputs the
-    path gave the kernel)."""
+    path gave the kernel, (the files, the loop's rows and exceptions, the
+    run's wall) for phase 13)."""
     paths = [os.path.join(tmp, n) for n in
              ("perf.csv", "carrier.csv", "airports.txt")]
     t0 = time.perf_counter()
@@ -1399,7 +1419,9 @@ def flights_phase(tmp: str):
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in s.items()))
     handoff_lines("flights", m)
-    if len(intermediate(m)) != 4 or any(
+    # the stages before the three joins, the defunct filter's stage pushed
+    # between the first two, and the first two joins
+    if len(intermediate(m)) != 5 or any(
             s["handoff_parts"] == 0 for s in intermediate(m)):
         raise AssertionError("flights: an intermediate stage handed off "
                              "no partition")
@@ -1410,9 +1432,7 @@ def flights_phase(tmp: str):
         raise AssertionError(f"flights at budget 0: exceptions "
                              f"{ds0.exception_counts()} != python {excs}")
     copy_split("flights", lambda c: flights.build_pipeline(c, *paths))
-    for p in paths:
-        os.remove(p)
-    return launches, inputs
+    return launches, inputs, (paths, want, excs, wall)
 
 
 def decode_violations(path: str, ds) -> int:
@@ -1719,6 +1739,155 @@ def fold_phase(path: str, dirty: str, dev) -> tuple[int, dict]:
     return launches, nums
 
 
+def stage_list(ds, conf=None) -> str:
+    """The job's plan (plan/physical.py plan_stages) in one line: T(n) a
+    transform stage of n operators (Ti an interpreter segment), J a join,
+    A an aggregate."""
+    out = []
+    for st in plan_stages(ds._op, Context(conf).options_store):
+        ops = getattr(st, "ops", None)
+        kind = type(st).__name__[0]
+        if ops is None:
+            out.append(kind)
+        else:
+            interp = "i" if st.force_interpret else ""
+            out.append(f"{kind}{interp}({len(ops)})")
+    return " ".join(out)
+
+
+def flights_pushdown_runs(flights_run) -> None:
+    """13a: flights under the defaults (the defunct filter pushed through
+    the Origin and Dest left joins) and with tuplex.optimizer.filterPushdown
+    off, both equal to the loop; the rows into each join, the join probe
+    kernel's launches and the walls."""
+    paths, want, excs, wall = flights_run
+    into = {}
+    for push in (True, False):
+        conf = {"tuplex.optimizer.filterPushdown": push}
+        ctx = Context(conf)
+        join_cuda.launches = 0
+        t0 = time.perf_counter()
+        ds = flights.build_pipeline(ctx, *paths)
+        got = ds.collect()
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        if got != want or ds.exception_counts() != excs:
+            raise AssertionError(f"flights, pushdown {push}: rows or "
+                                 "exceptions differ from the loop's")
+        joins = [s for s in ctx.metrics.stages if "host_probed_rows" in s]
+        into[push] = [s["device_probed_rows"] + s["host_probed_rows"]
+                      for s in joins]
+        print(f"flights, filterPushdown {push}: stages "
+              f"[{stage_list(ds, conf)}], rows into the carrier / Origin / "
+              f"Dest joins {' / '.join(map(str, into[push]))}, join_probe "
+              f"launches {join_cuda.launches}, wall {w:.3f} s (phase 9's "
+              f"run under the defaults {wall:.3f} s); {card_line()}")
+    # no operator after the joins drops a row but the defunct filter, so
+    # the loop's rows are the rows it keeps
+    if not into[True][1] == into[True][2] == len(want) < into[False][1] \
+            == into[False][2]:
+        raise AssertionError(f"flights: rows into the joins {into}")
+
+
+def planner_phase(flights_run, path: str) -> None:
+    """Phase 13: the planner's paths at full size (plan/optimizer.py
+    pushdown, plan/physical.py segment_stage, take, cache, show)."""
+    flights_pushdown_runs(flights_run)
+    lines = open(path, "rb").read().decode("utf-8", errors="replace") \
+        .splitlines()
+    kept = [x for x in lines if re.search(logs.ERROR_STATUS, x)]
+
+    # 13b: a segmented stage: the grep, a map the emitter refuses (set)
+    # on the interpreter, a compiled map
+    def segmented(c):
+        return c.text(path).filter(
+            lambda x: re.search(r'" (4\d\d|5\d\d) ', x)) \
+            .map(lambda x: len(set(x))).map(lambda y: (y, y * 2))
+
+    want = [(len(set(x)), 2 * len(set(x))) for x in kept]
+    ctx = Context()
+    nfa_cuda.launches = 0
+    t0 = time.perf_counter()
+    ds = segmented(ctx)
+    got = ds.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    segs = ctx.metrics.stages
+    tiers = [s["tier"] for s in segs]
+    if got != want or tiers != ["compiled", "interpreter", "compiled"]:
+        raise AssertionError(f"segmented grep: {len(got)} rows (loop "
+                             f"{len(want)}), segments {tiers}")
+    parts = segs[0]["dispatched_parts"]
+    if nfa_cuda.launches != parts or segs[1]["interpreter_rows"] != \
+            len(kept):
+        raise AssertionError(f"segmented grep: {nfa_cuda.launches} scan "
+                             f"launches over {parts} partitions, "
+                             f"{segs[1]['interpreter_rows']} interpreter "
+                             f"rows, the filter keeps {len(kept)}")
+    print(f"segmented grep: stages [{stage_list(ds)}] ({tiers}), "
+          f"{len(lines)} lines -> {len(got)} rows in {wall:.3f} s, "
+          f"nfa_scan launches {nfa_cuda.launches} on {parts} partitions, "
+          f"interpreter rows per segment "
+          f"{[s['interpreter_rows'] for s in segs]}, segment walls "
+          + " / ".join(f"{s['wall_s']:.3f}" for s in segs)
+          + f" s, graphs captured {[s['stage_compiles'] for s in segs]}, "
+          f"plan record {ctx.metrics.plans[-1]}; {card_line()}")
+
+    # 13c: take(10) stops dispatching past the window
+    ctx = Context()
+    nfa_cuda.launches = 0
+    t0 = time.perf_counter()
+    got = logs.build_grep(ctx.text(path)).take(10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (m,) = ctx.metrics.stages
+    n_parts = len(csvsource.make_text_operator(
+        ctx.options_store, path).load_partitions())
+    if got != [x[:x.find(" ")] for x in kept[:10]] or \
+            nfa_cuda.launches != m["dispatched_parts"] or \
+            nfa_cuda.launches >= n_parts:
+        raise AssertionError(f"take(10): {got}, nfa_scan launches "
+                             f"{nfa_cuda.launches} of {n_parts} partitions")
+    print(f"take(10) of the grep: equal to the loop's first 10 rows in "
+          f"{wall:.3f} s, nfa_scan launches {nfa_cuda.launches} of "
+          f"{n_parts} partitions, partitions dropped unmerged "
+          f"{m['dropped_parts']}; {card_line()}")
+
+    # 13d: cache() reads the source once; two maps over it
+    ctx = Context()
+    ds = ctx.text(path)
+    src, reads = ds._op, []
+    load = src.load_partitions
+    src.load_partitions = lambda: reads.append(1) or load()
+    t0 = time.perf_counter()
+    cached = ds.filter(lambda x: re.search(r'" (4\d\d|5\d\d) ', x)) \
+        .cache()
+    cache_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lens = cached.map(lambda x: len(x)).collect()
+    heads = cached.map(lambda x: x[:x.find(" ")]).collect()
+    maps_s = time.perf_counter() - t0
+    if lens != [len(x) for x in kept] or \
+            heads != [x[:x.find(" ")] for x in kept] or reads != [1]:
+        raise AssertionError(f"cache: rows differ from the loops', or the "
+                             f"source was read {len(reads)} times")
+    print(f"cache of the grep's {len(kept)} lines: built in {cache_s:.3f} s,"
+          f" two maps over it in {maps_s:.3f} s, equal to their loops; "
+          f"source read {len(reads)} time; {card_line()}")
+
+    # 13e: show(5) prints the reference's format
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cached.map(lambda x: {"client": x[:x.find(" ")], "n": len(x)}) \
+            .show(5)
+    rows = [(x[:x.find(" ")], len(x)) for x in kept[:5]]
+    expect = ["client | n", "-" * (3 * 2 + len("client") + len("n"))] + \
+        [" | ".join(repr(v) for v in r) for r in rows]
+    if buf.getvalue().splitlines() != expect:
+        raise AssertionError(f"show(5): {buf.getvalue()!r}")
+    print("show(5):\n" + buf.getvalue().rstrip())
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1899,7 +2068,6 @@ def main() -> None:
     # 5b -------------------------------------------------------------
     start_launches, err, start_nums = weblogs_phase(path, dev)
     max_start_err = max(max_start_err, err)
-    os.remove(path)
 
     done("5b")
 
@@ -1928,7 +2096,7 @@ def main() -> None:
 
     # 9 --------------------------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    flights_launches, probe_inputs = flights_phase(tmp)
+    flights_launches, probe_inputs, flights_run = flights_phase(tmp)
     # the kernel at the path's own inputs: the largest probe it made
     words, build = max(probe_inputs, key=lambda wb: wb[0].shape[0])
     err, _ = time_probe(words, build, "flights probe")
@@ -1944,7 +2112,6 @@ def main() -> None:
 
     # 11 -------------------------------------------------------------
     widened_phase(tmp)
-    os.rmdir(tmp)
     # one-word keys: torch.searchsorted computes the same lower bound
     words, build = max(probe_inputs, key=lambda wb: wb[0].shape[0])
     err, probe_nums = time_probe(words, build, "q19 probe")
@@ -1958,11 +2125,19 @@ def main() -> None:
     fold_launches, fold_nums = fold_phase(lineitem, dirty, dev)
     for f in (lineitem, dirty):
         os.remove(f)
-    os.rmdir(tpch_tmp)
 
     done("12")
 
     # 13 -------------------------------------------------------------
+    planner_phase(flights_run, path)
+    for f in (path, *flights_run[0]):
+        os.remove(f)
+    os.rmdir(tmp)
+    os.rmdir(tpch_tmp)
+
+    done("13")
+
+    # 14 -------------------------------------------------------------
     zero_native_calls()
     native_check()
     for k, v in native.calls.items():
@@ -1973,7 +2148,7 @@ def main() -> None:
     print(f"native module == Python path on every entry point; calls in "
           f"this run {total_calls}")
 
-    done("13")
+    done("14")
     print(json.dumps({"kernels": [{
         "name": "nfa_scan", "route": "cuda",
         "source": "tuplex_tpu_torch/csrc/nfa_scan.cu",

@@ -1240,3 +1240,90 @@ def test_evicted_graphs_return_their_pool(tmp_path, cuda_device,
     assert len(CQ.STORE) == 1 and CQ.STORE.evictions > 0
     assert all(p is not q for p in old for q in CQ.STORE.pools())
     CQ.clear()
+
+
+# ---------------------------------------------------------------------------
+# the planner: take, segments and the pushed filter's stage on the card
+# ---------------------------------------------------------------------------
+
+def _grep_lines(path):
+    return [x for x in open(path, encoding="utf-8").read().splitlines()
+            if re.search(r"GET", x) is not None]
+
+
+@pytest.mark.cuda
+def test_take_stops_dispatching_past_the_window(tmp_path, cuda_device):
+    """take(10) on a grep over many partitions: the loop's first 10 rows;
+    the stage dispatches the partition that meets the limit and the
+    window after it, no more, and the scan launches once for each."""
+    from tuplex_tpu_torch.exec import local
+
+    log = logs.generate_log(str(tmp_path / "a.log"), 20000, seed=17)
+    ctx = tuplex_tpu_torch.Context(conf={"tuplex.partitionSize": "64KB"})
+    ds = ctx.text(log).filter(lambda x: re.search(r"GET", x) is not None)
+    nfa_cuda.launches = 0
+    assert ds.take(10) == _grep_lines(log)[:10]
+    (m,) = ctx.metrics.stages
+    assert m["dispatched_parts"] == 1 + local._WINDOW
+    assert m["dropped_parts"] == local._WINDOW
+    assert nfa_cuda.launches == m["dispatched_parts"]
+
+
+@pytest.mark.cuda
+def test_segments_capture_and_replay_their_own_graphs(tmp_path,
+                                                      cuda_device):
+    """A grep, a map the emitter refuses (set), a compiled map: three
+    segments, the middle one on the interpreter. Each compiled segment
+    captures its own graph in the first job and replays it in the second;
+    the interpreter runs exactly the rows the filter keeps."""
+    from tuplex_tpu_torch.exec import compilequeue as CQ
+
+    log = logs.generate_log(str(tmp_path / "a.log"), 20000, seed=17)
+    conf = {"tuplex.partitionSize": "128KB"}
+    want = [(len(set(x)), 1) for x in _grep_lines(log)]
+    CQ.clear()
+    for run in ("capture", "replay"):
+        nfa_cuda.launches = 0
+        ctx = tuplex_tpu_torch.Context(conf=conf)
+        ds = ctx.text(log).filter(
+            lambda x: re.search(r"GET", x) is not None) \
+            .map(lambda x: len(set(x))).map(lambda y: (y, 1))
+        assert ds.collect() == want
+        seg = ctx.metrics.stages
+        assert [s["tier"] for s in seg] == ["compiled", "interpreter",
+                                            "compiled"]
+        assert seg[1]["interpreter_rows"] == len(want)
+        parts = seg[0]["dispatched_parts"]
+        assert parts > 2 and nfa_cuda.launches == parts
+        for s in (seg[0], seg[2]):
+            if run == "capture":
+                assert s["stage_compiles"] >= 1
+            else:
+                assert s["stage_compiles"] == 0 and s["graph_replays"] >= 2
+        assert ctx.metrics.graphDeclines() == {}, CQ.declines()
+    CQ.clear()
+
+
+@pytest.mark.cuda
+def test_pushed_filter_stage_keeps_the_handoff(tmp_path, cuda_device):
+    """Flights with the defunct filter pushed between the carrier join
+    and the Origin join: that stage takes the join's output as a device
+    view and hands its own to the next join, no partition by the host
+    route; the rows equal the loop's."""
+    p = flights.generate_perf_csv(str(tmp_path / "perf.csv"), 3000,
+                                  seed=13)
+    pc = flights.generate_carrier_csv(str(tmp_path / "carrier.csv"))
+    pa = flights.generate_airport_db(str(tmp_path / "airports.txt"))
+    ctx = tuplex_tpu_torch.Context(conf={"tuplex.partitionSize": "256KB"})
+    rows = flights.build_pipeline(ctx, p, pc, pa).collect()
+    assert rows == flights.run_reference_python(p, pc, pa)
+    stages = ctx.metrics.stages
+    is_join = ["device_probed_rows" in s for s in stages]
+    first = is_join.index(True)
+    carrier, pushed = stages[first], stages[first + 1]
+    assert not is_join[first + 1]
+    for s in (carrier, pushed):
+        assert s["handoff_parts"] > 0 and s["host_route_parts"] == 0
+    assert pushed["tier"] == "compiled" and pushed["forced_leaves"] == 0
+    joins = [s for s in stages if "device_probed_rows" in s]
+    assert joins[1]["device_probed_rows"] == len(rows) < 3000

@@ -246,8 +246,11 @@ def test_flights_hands_off_through_three_joins(flights_files, monkeypatch):
     loop_excs: dict = {}
     want = flights.run_reference_python(*flights_files, exceptions=loop_excs)
     assert rows == want == rows0 and excs == excs0 == loop_excs
+    # the stages before the three joins, the defunct filter pushed between
+    # the first two (plan/optimizer.py push_filters_through_joins) and
+    # the joins before the last stage
     mid = _intermediate(stages)
-    assert len(mid) == 4 and all(s["handoff_parts"] > 0 for s in mid)
+    assert len(mid) == 5 and all(s["handoff_parts"] > 0 for s in mid)
     assert stages[0]["general_rows"] > 0
     joins = [s for s in stages if "host_probed_rows" in s]
     assert all(s["host_probed_rows"] == 0 for s in joins)
@@ -421,13 +424,15 @@ def test_reading_one_leaf_of_a_lazy_partition_fetches_it_alone(lineitem):
 
 
 def test_consumer_kind_names_the_next_stage(flights_files, lineitem):
-    """Oracle: the plan's own stage list. Flights' stages hand to a join,
-    joins to joins and to the last stage, which has none; a stage whose
-    emitter refused its UDFs (interpreted) is no device consumer."""
+    """Oracle: the plan's own stage list. Flights' stages hand to a join
+    (the filter pushed between the carrier join and the Origin join
+    takes the first join's output), joins to joins and to the last stage,
+    which has none; a stage whose emitter refused its UDFs (interpreted)
+    is no device consumer."""
     ds = flights.build_pipeline(_port(), *flights_files)
     stages = plan_stages(ds._op)
     kinds = [consumer_kind(stages, i) for i in range(len(stages))]
-    assert kinds == ["join", "join", "join", "stage", False]
+    assert kinds == ["join", "stage", "join", "join", "stage", False]
     stages[-1].not_compilable = True
     assert consumer_kind(stages, len(stages) - 2) is False
     q1 = plan_stages(tpch.q1(_port().csv(lineitem))._op)

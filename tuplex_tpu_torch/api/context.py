@@ -19,8 +19,12 @@ from .metrics import Metrics
 
 
 class Context:
-    def __init__(self, conf: Mapping[str, Any] | None = None,
+    def __init__(self, conf: Mapping[str, Any] | str | None = None,
                  device=None, **kwargs):
+        """`conf`: option keys (nested or dotted; the `tuplex.` prefix may
+        be left out), or the path of a JSON or `key: value` YAML file of
+        them (reference: context.py:50). Keyword arguments are options
+        too."""
         self.options_store = ContextOptions(conf, **kwargs)
         self.device = resolve_device(device)
         self.backend = LocalBackend(self.device)
@@ -70,6 +74,34 @@ class Context:
 
         return DataSet(self, make_text_operator(self.options_store, pattern,
                                                 null_values=null_values))
+
+    def options(self, nested: bool = False) -> dict:
+        """Every option as {key: value string}; with `nested`, as a tree
+        split at the dots (reference: context.py:184)."""
+        flat = self.options_store.as_dict()
+        if not nested:
+            return flat
+        out: dict = {}
+        for k, v in flat.items():
+            cur = out
+            ks = k.split(".")
+            for piece in ks[:-1]:
+                nxt = cur.setdefault(piece, {})
+                if not isinstance(nxt, dict):   # a leaf, then its group
+                    nxt = cur[piece] = {"": nxt}
+                cur = nxt
+            if isinstance(cur.get(ks[-1]), dict):
+                cur[ks[-1]][""] = v             # a group, then its leaf
+            else:
+                cur[ks[-1]] = v
+        return out
+
+    def optionsToYAML(self, file_path: str = "config.yaml") -> None:
+        """Write every option as a `key: value` line, sorted by key; the
+        file is a `conf` for a later Context."""
+        with open(file_path, "w") as fp:
+            for k, v in sorted(self.options_store.as_dict().items()):
+                fp.write(f"{k}: {v}\n")
 
 
 def _infer_row_schema(sample: list, columns, threshold: float) -> T.RowType:

@@ -1,9 +1,11 @@
 """Public DataSet — lazy operator-graph builder (counterpart of
 `tuplex_tpu/api/dataset.py`; reference: python/tuplex/dataset.py — unique:36,
 map:49, filter:83, withColumn/mapColumn/selectColumns, collect:113,
-resolve:162, ignore:319, renameColumn, columns:365, types:375, join:384,
-leftJoin:442, aggregate:593, aggregateByKey:644, exception_counts:707). Every method returns a NEW DataSet over a new
-logical operator; nothing executes until collect()."""
+take:125, show:144, resolve:162, ignore:319, renameColumn, cache:346,
+columns:365, types:375, join:384, leftJoin:442, aggregate:593,
+aggregateByKey:644, exception_counts:707). Every method returns a NEW
+DataSet over a new logical operator; nothing executes until an action
+(collect, take, show), except cache(), which runs its plan at once."""
 
 from __future__ import annotations
 
@@ -110,13 +112,65 @@ class DataSet:
     def schema(self) -> T.RowType:
         return self._op.schema()
 
+    def cache(self, store_specialized: bool = True) -> "DataSet":
+        """A dataset over this one's rows, computed now and kept: later
+        actions on it, and on datasets built from it, read the kept
+        partitions and never run this dataset's operators again
+        (plan/cacheop.py)."""
+        from ..plan.cacheop import CacheOperator
+
+        op = CacheOperator(self._op, store_specialized)
+        op.materialize(self._context)
+        return DataSet(self._context, op)
+
     # -- actions ------------------------------------------------------------
     def collect(self) -> list:
         """Run the plan's stages in order, each over the partitions the one
         before it returned (the first over its source's)."""
-        parts, exceptions = run_plan(self._context, self._op)
+        return self._execute(-1)
+
+    def take(self, nrows: int = 5) -> list:
+        """The first `nrows` rows, in order. The last stage stops
+        dispatching partitions once it has them: at most the dispatch
+        window's partitions past the one that met the limit run."""
+        return self._execute(nrows)
+
+    def show(self, nrows: int = -1) -> None:
+        """Print the column names, a rule, then one line a row (the first
+        `nrows`, or all)."""
+        rows = self._execute(nrows)
+        cols = self.columns
+        if cols:
+            print(" | ".join(cols))
+            print("-" * (3 * len(cols) + sum(len(c) for c in cols)))
+        for r in rows:
+            if isinstance(r, tuple):
+                print(" | ".join(repr(v) for v in r))
+            else:
+                print(repr(r))
+
+    def explain(self) -> str:
+        """The physical plan as text, printed and returned: each stage, its
+        source, why an interpreter segment is routed there, and its
+        operators (utils/planviz.py)."""
+        from ..utils.planviz import explain
+
+        text = explain(self._op, self._context.options_store)
+        print(text)
+        return text
+
+    def to_dot(self) -> str:
+        """The operator DAG as graphviz DOT text."""
+        from ..utils.planviz import plan_to_dot
+
+        return plan_to_dot(self._op)
+
+    def _execute(self, limit: int) -> list:
+        sink = L.TakeOperator(self._op, limit) if limit >= 0 else self._op
+        parts, exceptions = run_plan(self._context, sink)
         self._last_exceptions = exceptions
-        return [v for p in parts for v in C.partition_to_pylist(p)]
+        out = [v for p in parts for v in C.partition_to_pylist(p)]
+        return out if limit < 0 else out[:limit]
 
     def exception_counts(self) -> dict[str, int]:
         """Counts of unresolved exceptions from the LAST collect() on this

@@ -7,9 +7,22 @@ from __future__ import annotations
 class Metrics:
     def __init__(self):
         self.stages: list[dict] = []
+        self.plans: list[dict] = []
 
     def record_stage(self, m: dict) -> None:
         self.stages.append(dict(m))
+
+    def record_plan(self, m: dict) -> None:
+        """One planned job or sub-plan (a join's build side, a cache):
+        its `stages`, `interpreter_segments` and `plan_fallback_ops`
+        (exec/local.py `run_plan`)."""
+        self.plans.append(dict(m))
+
+    def planFallbackOps(self) -> int:
+        """Operators the planner routed to the interpreter by the
+        analyzer's findings alone, with no probe of the emitter
+        (compiler/analyzer.py STATS; reference: metrics.py:33)."""
+        return sum(int(m.get("plan_fallback_ops", 0)) for m in self.plans)
 
     def _sum(self, key: str):
         return sum(m.get(key, 0) for m in self.stages)

@@ -19,10 +19,16 @@ One AST pass per UDF gives a `UDFReport`:
     code it misses still routes its row, under `ResolveBuffers.other`.
   * `mutates_globals`: the UDF writes a global or a closure cell, so the
     source tier must call the live function, never a rebuilt copy.
+  * `deterministic`: the UDF calls nothing of `random`, `time`,
+    `datetime`, `uuid` or `secrets`; a cache over a chain that does pins
+    one outcome (`chain_deterministic`, plan/cacheop.py).
 
-The reference's purity verdict, lint, `explain` and analyzer metrics are
-not ported, nor its marking of findings inside `if` arms (the port does
-not speculate on branches).
+The planner reads the first fallback finding as the reason it routes an
+operator to the interpreter at plan time (`routing_finding`,
+plan/physical.py `op_compiles` and `segment_stage`); `STATS` counts
+those operators (`plan_fallback_ops`, `Metrics.planFallbackOps`). The
+reference's lint and its marking of findings inside `if` arms are not
+ported (the port does not speculate on branches).
 """
 
 from __future__ import annotations
@@ -42,13 +48,14 @@ _DYNAMIC_CALLS = {"eval", "exec", "compile", "__import__", "globals",
 _IO_CALLS = {"open", "input", "print", "breakpoint"}
 _IO_MODULES = {"os", "sys", "io", "shutil", "subprocess", "socket",
                "urllib", "requests", "pathlib"}
+_NONDET_MODULES = {"random", "time", "datetime", "uuid", "secrets"}
 
 _FINDINGS_CAP = 64
 
 
 @dataclasses.dataclass(frozen=True)
 class Finding:
-    kind: str                 # "fallback" | "exception"
+    kind: str                 # "fallback" | "exception" | "impure"
     reason: str               # one line
     lineno: int               # relative to the UDF source
     col: int
@@ -59,8 +66,11 @@ class Finding:
 class UDFReport:
     name: str
     params: tuple
+    filename: str = "<udf>"
+    line_base: int = 1        # the file line of the UDF's first line
     findings: list = dataclasses.field(default_factory=list)
     mutates_globals: bool = False
+    deterministic: bool = True
 
     @property
     def fallback_findings(self) -> list:
@@ -75,8 +85,18 @@ class UDFReport:
         """Whether any construct the emitter never compiles appears."""
         return bool(self.fallback_findings)
 
+    def routing_finding(self) -> Optional[Finding]:
+        """The fallback finding that routes the UDF to the interpreter at
+        plan time: the first (the port marks no finding conditional, so
+        any routes it, and the reference's `must_fallback_now` is
+        `must_fallback`)."""
+        return next(iter(self.fallback_findings), None)
+
     def exception_codes(self) -> set:
         return {f.code for f in self.exception_findings if f.code is not None}
+
+    def loc(self, f: Finding) -> str:
+        return f"{self.filename}:{self.line_base + f.lineno - 1}"
 
 
 class _UdfVisitor(ast.NodeVisitor):
@@ -240,11 +260,16 @@ class _UdfVisitor(ast.NodeVisitor):
             self._exc(node, f"re.{fn.attr} rows the compiled regex engine "
                       "leaves to the interpreter",
                       ExceptionCode.PYTHON_FALLBACK)
-        if isinstance(fn, ast.Attribute) and isinstance(fn.value, ast.Name) \
-                and self.module_names.get(fn.value.id) in _IO_MODULES:
+        if isinstance(fn, ast.Attribute) and isinstance(fn.value, ast.Name):
             # by the module's real name, not its local binding
-            self._fallback(node, f"I/O module call "
-                           f"({fn.value.id}.{fn.attr})")
+            real = self.module_names.get(fn.value.id)
+            if real in _IO_MODULES:
+                self._fallback(node, f"I/O module call "
+                               f"({fn.value.id}.{fn.attr})")
+            elif real in _NONDET_MODULES:
+                self._add("impure", node, f"nondeterministic call "
+                          f"{fn.value.id}.{fn.attr}()")
+                self.r.deterministic = False
         self.generic_visit(node)
 
     # -- the exception-site inventory ---------------------------------------
@@ -409,6 +434,8 @@ def analyze_udf(udf) -> UDFReport:
     else:
         rpt = analyze_tree(udf.tree, name=udf.name,
                            globals_map=udf.globals)
+    if code is not None:
+        rpt.filename, rpt.line_base = code.co_filename, code.co_firstlineno
     if key is not None:
         _udf_memo[key] = rpt
     return rpt
@@ -427,3 +454,37 @@ def op_reports(op) -> list:
                                  if (u := getattr(op, attr, None))
                                  is not None]
     return memo
+
+
+def op_analysis(op) -> Optional[UDFReport]:
+    """The report of an operator's fused UDF (`udf`), or None."""
+    return next((rep for attr, rep in op_reports(op) if attr == "udf"),
+                None)
+
+
+def chain_deterministic(op) -> bool:
+    """Whether every UDF upstream of `op`, `op`'s own included, is
+    deterministic."""
+    seen, stack = set(), [op]
+    while stack:
+        o = stack.pop()
+        if id(o) in seen:
+            continue
+        seen.add(id(o))
+        if not all(rep.deterministic for _, rep in op_reports(o)):
+            return False
+        stack.extend(o.parents)
+    return True
+
+
+#: plan_fallback_ops: operators the planner routed to the interpreter by
+#: their fallback findings, without a probe of the emitter
+STATS = {"plan_fallback_ops": 0}
+
+
+def snapshot() -> dict:
+    return dict(STATS)
+
+
+def delta(snap: dict) -> dict:
+    return {k: STATS[k] - snap.get(k, 0) for k in STATS}

@@ -21,8 +21,10 @@ exactly as Python compares them, str ==/!= and code-point ordering,
 Option == None); `in` on
 strings and constant tuples; None and Option values; tuples, tuple and
 named-row indexing; string indexing and slicing, `len`, concatenation,
-`'%0Nd' % i`, `'{}'`/`'{:0N}'`/`'{:N}'` with `str.format`, `int()`,
-`float()`; `str.find`/`rfind`/`index`/`rindex` with a constant needle,
+`'%0Nd' % i`, `'{}'`/`'{:0N}'`/`'{:N}'` with `str.format` and in
+f-strings, `int()`, `float()`; `s.split(sep)[k]` with a constant ASCII
+`sep` and a constant `k`; `str.find`/`rfind`/`index`/`rindex` with a
+constant needle,
 `lower`/`upper`, `replace` with constant arguments, `strip`/`lstrip`/
 `rstrip`, `string.capwords`; `re.search` / `re.match` (the anchored
 engine with capture groups, the NFA's truth value and its two-pass
@@ -346,6 +348,9 @@ class Frame:
         return merge_cv(self, cond, a, b)
 
     def eval_Subscript(self, node: ast.Subscript) -> CV:
+        piece = self._split_item(node)
+        if piece is not None:
+            return piece
         val = self.eval(node.value)
         if isinstance(node.slice, ast.Slice):
             return self._slice(val, node.slice)
@@ -370,6 +375,59 @@ class Frame:
             self.raise_where(oob, ExceptionCode.INDEXERROR)
             return CV(t=T.STR, sbytes=ch, slen=cl)
         raise NotCompilable(f"subscript on {val.t}")
+
+    def _split_item(self, node: ast.Subscript) -> Optional[CV]:
+        """`s.split(sep)[k]`, or None where `node` is not of that form:
+        the k-th piece, found by k + 1 searches for `sep` (constant, ASCII,
+        not empty: its bytes never occur inside a multibyte character, so
+        byte offsets split as CPython does). A row with k pieces or fewer
+        raises IndexError; a None `s` raises AttributeError."""
+        call = node.value
+        if not (isinstance(call, ast.Call)
+                and isinstance(call.func, ast.Attribute)
+                and call.func.attr == "split" and len(call.args) == 1
+                and not call.keywords
+                and not isinstance(node.slice, ast.Slice)):
+            return None
+        recv = self.eval(call.func.value)
+        sep, k = self.eval(call.args[0]), self.eval(node.slice)
+        if not (sep.is_const and isinstance(sep.const, str) and sep.const
+                and sep.const.isascii() and k.is_const
+                and type(k.const) is int and k.const >= 0):
+            raise NotCompilable("split: needs a constant ASCII separator "
+                                "and a constant index >= 0")
+        if recv.base is not T.STR and recv.t is not T.NULL:
+            raise NotCompilable(f"split of {recv.t}")
+        rb, rl = self._to_strpair(self._str_receiver(recv))
+        start = torch.zeros_like(rl, dtype=I32)
+        for _ in range(k.const):
+            pos = S.find_const(rb, rl, sep.const, start=start)
+            self.raise_where(pos < 0, ExceptionCode.INDEXERROR)
+            start = torch.where(pos < 0, start, pos + len(sep.const))
+        end = S.find_const(rb, rl, sep.const, start=start)
+        fb, fl = S.slice_(rb, rl, start, torch.where(end < 0, rl, end))
+        return CV(t=T.STR, sbytes=fb, slen=fl)
+
+    def eval_JoinedStr(self, node: ast.JoinedStr) -> CV:
+        """An f-string: its literal pieces and its fields, each field as
+        `str.format` formats it (`_format_field`), concatenated."""
+        out: Optional[CV] = None
+        for v in node.values:
+            if isinstance(v, ast.Constant):
+                part = const_cv(v.value)
+            elif isinstance(v, ast.FormattedValue) and v.conversion == -1:
+                spec = v.format_spec
+                if spec is not None and not all(
+                        isinstance(x, ast.Constant) for x in spec.values):
+                    raise NotCompilable("f-string: a computed format spec")
+                part = self._format_field(
+                    self.eval(v.value),
+                    "" if spec is None else "".join(x.value
+                                                    for x in spec.values))
+            else:
+                raise NotCompilable("f-string conversion")
+            out = part if out is None else self._str_concat(out, part)
+        return out if out is not None else const_cv("")
 
     def eval_Call(self, node: ast.Call) -> CV:
         if node.keywords:
@@ -958,37 +1016,38 @@ class Frame:
         for literal, field, spec, conv in fields:
             part = const_cv(literal) if literal else None
             if field is not None:
-                if field != "" or conv is not None or \
-                        not re.fullmatch(r"(0?[1-9]\d*)?", spec) or \
-                        ai >= len(args):
+                if field != "" or conv is not None or ai >= len(args):
                     raise NotCompilable(f"str.format field {{{field}:{spec}}}")
-                arg = args[ai]
+                val = self._format_field(args[ai], spec)
                 ai += 1
-                if arg.valid is not None:
-                    self.raise_where(~arg.valid,
-                                     ExceptionCode.NORMALCASEVIOLATION)
-                    arg = CV(t=arg.base, data=arg.data, sbytes=arg.sbytes,
-                             slen=arg.slen)
-                arg = self.materialize(arg)
-                if arg.base is T.STR and not spec:
-                    val = CV(t=T.STR, sbytes=arg.sbytes, slen=arg.slen)
-                elif arg.base is T.I64:
-                    width = int(spec or "0")
-                    zero = spec.startswith("0")
-                    fb, fl = S.format_i64(arg.data, width=width,
-                                          pad_zero=zero)
-                    if width and not zero:
-                        fb, fl = S.pad_left(fb, fl, width)
-                    val = CV(t=T.STR, sbytes=fb, slen=fl)
-                else:
-                    raise NotCompilable(f"str.format of {arg.t} "
-                                        f"with {spec!r}")
                 part = val if part is None else self._str_concat(part, val)
             if part is not None:
                 out = part if out is None else self._str_concat(out, part)
         if ai != len(args):
             raise NotCompilable("str.format: surplus arguments")
         return out if out is not None else const_cv("")
+
+    def _format_field(self, arg: CV, spec: str) -> CV:
+        """One replacement field: '{}' of a str or an int, '{:0N}' and
+        '{:N}' of an int; anything else interprets. A None value (formatted
+        as 'None', or raising under a width) re-runs on the interpreter."""
+        if not re.fullmatch(r"(0?[1-9]\d*)?", spec):
+            raise NotCompilable(f"format field {{:{spec}}}")
+        if arg.valid is not None:
+            self.raise_where(~arg.valid, ExceptionCode.NORMALCASEVIOLATION)
+            arg = CV(t=arg.base, data=arg.data, sbytes=arg.sbytes,
+                     slen=arg.slen)
+        arg = self.materialize(arg)
+        if arg.base is T.STR and not spec:
+            return CV(t=T.STR, sbytes=arg.sbytes, slen=arg.slen)
+        if arg.base is T.I64:
+            width = int(spec or "0")
+            zero = spec.startswith("0")
+            fb, fl = S.format_i64(arg.data, width=width, pad_zero=zero)
+            if width and not zero:
+                fb, fl = S.pad_left(fb, fl, width)
+            return CV(t=T.STR, sbytes=fb, slen=fl)
+        raise NotCompilable(f"format of {arg.t} with {spec!r}")
 
     def _builtin_float(self, args: list[CV]) -> CV:
         """float() of a number (the identity on f64; ints convert rounding

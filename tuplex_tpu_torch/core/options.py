@@ -5,11 +5,13 @@ release defaults; python/tuplex/context.py:147-187 normalization) so pipelines
 written against tuplex/tuplex configure this framework unchanged.
 
 Values are stored stringly (like the reference) with typed getters; inputs may
-be nested dicts or kwargs, flattened to `tuplex.`-prefixed keys.
+be nested dicts, kwargs or a YAML/JSON file, flattened to `tuplex.`-prefixed
+keys.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Mapping
 
 
@@ -27,11 +29,23 @@ def _size_to_bytes(s: str | int | float) -> int:
     return int(float(s))
 
 
+def _to_bool(v: Any) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("true", "1", "yes", "on")
+
+
 #: defaults mirror the reference's release table for the keys this
 #: package reads
 DEFAULTS: dict[str, str] = {
     "tuplex.partitionSize": "32MB",
     "tuplex.normalcaseThreshold": "0.9",
+    "tuplex.optimizer.filterPushdown": "true",
+    "tuplex.optimizer.filterBreakdown": "true",
+    "tuplex.optimizer.operatorReordering": "false",
+    "tuplex.optimizer.selectionPushdown": "true",
+    "tuplex.csv.maxDetectionMemory": "256KB",
+    "tuplex.csv.maxDetectionRows": "1000",
     "tuplex.sample.maxDetectionRows": "1000",
 }
 
@@ -45,13 +59,34 @@ class ContextOptions:
             self.update(kwargs)
 
     # -- updates ------------------------------------------------------------
-    def update(self, conf: Mapping[str, Any]) -> None:
+    def update(self, conf: Mapping[str, Any] | str) -> None:
+        """Set the keys of a (nested) mapping, or of a JSON or `key: value`
+        YAML file named by a path."""
+        if isinstance(conf, str):
+            with open(conf) as fp:
+                text = fp.read()
+            try:
+                data = json.loads(text)
+            except json.JSONDecodeError:
+                data = _parse_simple_yaml(text)
+            self.update(data)
+            return
         for k, v in _flatten(conf).items():
             self._store[_normalize_key(k)] = _stringify(v)
+
+    def set(self, key: str, value: Any) -> None:
+        self._store[_normalize_key(key)] = _stringify(value)
 
     # -- getters ------------------------------------------------------------
     def get(self, key: str, default: Any = None) -> Any:
         return self._store.get(_normalize_key(key), default)
+
+    def get_str(self, key: str, default: str = "") -> str:
+        return str(self.get(key, default))
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        v = self.get(key)
+        return default if v is None else _to_bool(v)
 
     def get_int(self, key: str, default: int = 0) -> int:
         v = self.get(key)
@@ -68,6 +103,12 @@ class ContextOptions:
     def get_size(self, key: str, default: int = 0) -> int:
         v = self.get(key)
         return default if v is None else _size_to_bytes(v)
+
+    def as_dict(self) -> dict[str, str]:
+        return dict(self._store)
+
+    def __contains__(self, key: str) -> bool:
+        return _normalize_key(key) in self._store
 
     def __repr__(self) -> str:
         return f"ContextOptions({len(self._store)} keys)"
@@ -94,3 +135,15 @@ def _flatten(d: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
             out[key] = v
     return out
 
+
+def _parse_simple_yaml(text: str) -> dict[str, Any]:
+    """The `key: value` subset of YAML, one key a line (dotted keys, no
+    nesting by indentation), as `Context.optionsToYAML` writes it."""
+    out: dict[str, Any] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#") or ":" not in line:
+            continue
+        k, _, v = line.partition(":")
+        out[k.strip()] = v.strip().strip("\"'")
+    return out

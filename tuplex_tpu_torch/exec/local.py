@@ -161,19 +161,32 @@ class LocalBackend:
         out_parts: list = []
         exceptions: list[ExceptionRecord] = []
         window: deque = deque()
+        limit, emitted = stage.limit, 0
 
         def collect_one():
+            nonlocal emitted
             part, outs, dispatch_s = window.popleft()
+            if 0 <= limit <= emitted:
+                # the limit is met: work dispatched ahead is dropped
+                C.release_view(part)
+                metrics["dropped_parts"] += 1
+                return
             outp, excs, m = self._collect_partition(stage, part, outs,
                                                     dispatch_s, handoff)
             C.release_view(part)
             for k in _SUMMED:
                 metrics[k] += m.get(k, 0)
             exceptions.extend(excs)
+            if limit >= 0:
+                outp = _truncate_partition(outp, limit - emitted)
+                emitted += outp.num_rows
             out_parts.append(outp)
 
         for part in partitions:
+            if 0 <= limit <= emitted:
+                break   # no partition is dispatched past the window
             window.append(self._dispatch_partition(part, stage))
+            metrics["dispatched_parts"] += 1
             if len(window) > _WINDOW:
                 collect_one()
         while window:
@@ -501,16 +514,29 @@ class LocalBackend:
 
 
 def run_plan(context, sink: L.LogicalOperator) -> tuple[list, list]:
-    """(partitions, exception records) of the plan ending at `sink`: its
-    stages run in order, each over the partitions the one before it
-    returned (the first over its source's). A join stage first runs its
-    build side's plan, whose exceptions come before the join's own."""
+    """(partitions, exception records) of the plan ending at `sink`,
+    planned under the context's options: its stages run in order, each
+    over the partitions the one before it returned (the first over its
+    source's, read lazily when it has a limit). A join stage first runs
+    its build side's plan, whose exceptions come before the join's own.
+    The plan's record (`Metrics.record_plan`) counts its stages,
+    interpreter segments and the operators the analyzer routed."""
+    from ..compiler import analyzer as AZ
+
     exceptions: list = []
     parts = None
-    stages = plan_stages(sink)
+    snap = AZ.snapshot()
+    stages = plan_stages(sink, context.options_store)
+    context.metrics.record_plan({
+        "stages": len(stages),
+        "interpreter_segments": sum(getattr(s, "force_interpret", False)
+                                    for s in stages),
+        "plan_fallback_ops": AZ.delta(snap)["plan_fallback_ops"]})
     for si, stage in enumerate(stages):
         if parts is None:
-            parts = source_partitions(context, stage.source)
+            parts = source_partitions(
+                context, stage.source,
+                lazy=isinstance(stage, TransformStage) and stage.limit >= 0)
         consumer = consumer_kind(stages, si)
         if isinstance(stage, JoinStage):
             from .joinexec import JoinExecutor
@@ -524,21 +550,50 @@ def run_plan(context, sink: L.LogicalOperator) -> tuple[list, list]:
         context.metrics.record_stage(res.metrics)
         exceptions.extend(res.exceptions)
         parts = res.partitions
+        if stage.limit >= 0 and not isinstance(stage, TransformStage):
+            parts = _truncate_partitions(parts, stage.limit)
     return parts, exceptions
 
 
-def source_partitions(context, src) -> list:
+def source_partitions(context, src, lazy: bool = False):
     """Materialize a stage source into columnar partitions with one
-    dataset-wide string width."""
+    dataset-wide string width. `lazy` (a take): an iterator over them
+    instead, read as the stage pulls, whose string widths are each
+    partition's own."""
     if isinstance(src, L.ParallelizeOperator):
         schema = src.schema()
         part_rows = _rows_per_partition(context, schema, len(src.data))
-        parts = [C.build_partition(src.data[off: off + part_rows], schema,
+        parts = (C.build_partition(src.data[off: off + part_rows], schema,
                                    start_index=off)
-                 for off in range(0, len(src.data), part_rows)]
+                 for off in range(0, len(src.data), part_rows))
+    elif lazy and hasattr(src, "iter_partitions"):
+        parts = src.iter_partitions()
     else:
         parts = src.load_partitions()
-    return C.harmonize_partitions(parts)
+    return iter(parts) if lazy else C.harmonize_partitions(list(parts))
+
+
+def _truncate_partition(part: C.Partition, k: int) -> C.Partition:
+    """The first `k` rows of a host partition."""
+    if k >= part.num_rows:
+        return part
+    idx = np.arange(k, dtype=np.int64)
+    out = C.gather_partition(part, idx, idx, k)
+    if part.normal_mask is not None:
+        out.normal_mask = part.normal_mask[:k].copy()
+    out.fallback = {i: v for i, v in part.fallback.items() if i < k}
+    return out
+
+
+def _truncate_partitions(parts: list, limit: int) -> list:
+    out, left = [], limit
+    for p in parts:
+        if left <= 0:
+            break
+        p = _truncate_partition(p, left)
+        left -= p.num_rows
+        out.append(p)
+    return out
 
 
 def _rows_per_partition(context, schema, total_rows: int) -> int:
@@ -556,7 +611,8 @@ def _rows_per_partition(context, schema, total_rows: int) -> int:
 _SUMMED = ("fast_path_s", "slow_path_s", "interpreter_rows",
            "ignored_rows", "device_error_rows", "fetch_bytes",
            "fetched_row_columns", "general_path_s", "general_rows",
-           "exact_exit_rows", "general_not_compilable_rows")
+           "exact_exit_rows", "general_not_compilable_rows",
+           "dispatched_parts", "dropped_parts")
 
 
 def _fold_in_order(stage: TransformStage, part: C.Partition,

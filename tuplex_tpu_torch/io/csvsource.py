@@ -70,7 +70,11 @@ class TextSourceOperator(L.LogicalOperator):
         return [Row((ln,), None) for ln in self._null_map(lines)]
 
     def load_partitions(self) -> list[C.Partition]:
-        parts = []
+        return list(self.iter_partitions())
+
+    def iter_partitions(self):
+        """The partitions in order, each built when it is asked for (a
+        take stops reading the files at its limit)."""
         offset = 0
         rows_pp = max(256, self.options.get_size(
             "tuplex.partitionSize", 32 << 20) // 64)
@@ -85,20 +89,18 @@ class TextSourceOperator(L.LogicalOperator):
                     n = min(rows_pp, len(starts) - s)
                     (mat, ln), = native.gather_rows(
                         src, starts[s: s + n], lens[s: s + n], None, n)
-                    parts.append(C.Partition(
+                    yield C.Partition(
                         schema=self._schema, num_rows=n,
                         leaves={"0": C.StrLeaf(mat, ln)},
-                        start_index=offset + s))
+                        start_index=offset + s)
                 offset += len(starts)
                 continue
             text = data.decode("utf-8", errors="replace")
             lines = self._null_map(text.splitlines())
             for s in range(0, len(lines), rows_pp):
-                parts.append(C.build_partition(lines[s: s + rows_pp],
-                                               self._schema,
-                                               start_index=offset + s))
+                yield C.build_partition(lines[s: s + rows_pp], self._schema,
+                                        start_index=offset + s)
             offset += len(lines)
-        return parts
 
 
 def _line_ranges(data: bytes):
@@ -332,7 +334,10 @@ class CSVSourceOperator(L.LogicalOperator):
                 for r in (r[:k] for r in self.stat.sample_rows)]
 
     def load_partitions(self) -> list[C.Partition]:
-        parts: list[C.Partition] = []
+        return list(self.iter_partitions())
+
+    def iter_partitions(self):
+        """The partitions in order, each built when it is asked for."""
         offset = 0
         for path in self.files:
             with VirtualFileSystem.open_read(path, "rb") as fp:
@@ -340,7 +345,7 @@ class CSVSourceOperator(L.LogicalOperator):
             try:
                 for p in csv_partitions(data, self.stat, self.options,
                                         offset, self.keep):
-                    parts.append(p)
+                    yield p
                     offset += p.num_rows
             except UnicodeDecodeError as e:
                 # a loop over the file opened as UTF-8 raises this; the
@@ -348,7 +353,6 @@ class CSVSourceOperator(L.LogicalOperator):
                 raise UnicodeDecodeError(
                     e.encoding, e.object, e.start, e.end,
                     f"{e.reason} (CSV file {path})") from None
-        return parts
 
 
 def make_csv_operator(options, pattern: str, columns=None, header=None,

@@ -42,7 +42,7 @@ class JoinOperator(L.LogicalOperator):
     def is_breaker(self) -> bool:
         return True
 
-    def decorate(self, name: str, side: int) -> str:
+    def _decorate(self, name: str, side: int) -> str:
         return f"{self.prefixes[side] or ''}{name}{self.suffixes[side] or ''}"
 
     def output_layout(self, ls: T.RowType, rs: T.RowType):
@@ -55,7 +55,7 @@ class JoinOperator(L.LogicalOperator):
         cols, types, sources = [], [], []
         for i, (c, t) in enumerate(zip(ls.columns, ls.types)):
             if i != lk:
-                cols.append(self.decorate(c, 0))
+                cols.append(self._decorate(c, 0))
                 types.append(t)
                 sources.append((0, i))
         cols.append(self.left_column)
@@ -63,7 +63,7 @@ class JoinOperator(L.LogicalOperator):
         sources.append((0, lk))
         for i, (c, t) in enumerate(zip(rs.columns, rs.types)):
             if i != rk:
-                cols.append(self.decorate(c, 1))
+                cols.append(self._decorate(c, 1))
                 types.append(T.option(t) if self.how == "left" else t)
                 sources.append((1, i))
         return cols, types, sources

@@ -1,7 +1,7 @@
 """Logical operator DAG (counterpart of `tuplex_tpu/plan/logical.py`, the
 operators this package supports: parallelize, map, filter, withColumn,
-mapColumn, selectColumns, renameColumn, resolve, ignore and the CSV cell
-decode; the aggregates are in plan/aggregates.py, the join in
+mapColumn, selectColumns, renameColumn, resolve, ignore, take and the CSV
+cell decode; the aggregates are in plan/aggregates.py, the join in
 plan/joins.py).
 
 Schema inference IS the sample tracer: operators run their UDF on the
@@ -362,6 +362,19 @@ class IgnoreOperator(LogicalOperator):
 
 
 RESOLVERS = (ResolveOperator, IgnoreOperator)
+
+
+class TakeOperator(LogicalOperator):
+    """The first `limit` rows (reference: logical/TakeOperator.cc;
+    dataset.py:125 take). The planner takes it out of the chain and sets
+    the last stage's `limit`; -1 is no limit."""
+
+    def __init__(self, parent: LogicalOperator, limit: int):
+        super().__init__([parent])
+        self.limit = limit
+
+    def schema(self) -> T.RowType:
+        return self.parent.schema()
 
 
 class DecodeOperator(LogicalOperator):

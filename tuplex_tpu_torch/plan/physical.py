@@ -40,6 +40,7 @@ from ..core.errors import (ExceptionCode, NotCompilable,
 from ..ops import strings as S
 from ..runtime.columns import user_columns
 from ..runtime.torchcfg import F64, I32, I64
+from ..utils.lru import LruDict
 from . import logical as L
 
 
@@ -118,19 +119,27 @@ class ResolveBuffers:
 
 class TransformStage:
     """A fused chain of row operators over one input: a source operator,
-    or the breaker whose stage runs before it."""
+    the breaker whose stage runs before it, or the last operator of the
+    segment before it (`segment_stage`). `input_schema` is given where the
+    operators were reordered after they were built (a segment's input)."""
 
-    not_compilable = False   # set by the backend when the emitter rejects
-                             # a fused UDF: every row then interprets
+    not_compilable = False   # every row interprets: the planner routed
+                             # the segment there (`force_interpret`), or
+                             # the emitter rejected a fused UDF at run time
+    force_interpret = False  # an interpreter segment (`segment_stage`)
+    route_reason = ""        # why the planner routed it there
+    limit = -1               # rows the stage emits at most (take); -1 all
     compaction_off = False   # set when a compaction bucket overflowed
     fold_spec = None         # the FoldSpec of a whole-dataset aggregate
                              # whose fold runs in this stage's device pass
     fold_failed = False      # set when the fold is outside the compiled
                              # subset: the stage then returns its rows
 
-    def __init__(self, source: L.LogicalOperator, ops: list):
+    def __init__(self, source: L.LogicalOperator, ops: list,
+                 input_schema: Optional[T.RowType] = None):
         self.source = source
         self.ops = ops
+        self._input_override = input_schema
         self._relink_schemas()
         self._py_pipelines: dict = {}
         # str-column sets of the general tier whose build the emitter
@@ -138,7 +147,7 @@ class TransformStage:
         self.general_refused: set = set()
 
     def _relink_schemas(self) -> None:
-        self.input_schema = self.source.schema()
+        self.input_schema = self._input_override or self.source.schema()
         last = self.ops[-1] if self.ops else self.source
         self.output_schema = last.schema()
         self.output_columns = last.columns()
@@ -341,6 +350,8 @@ class AggregateStage:
     input (reference: physical/AggregateStage.cc). `source` is set when
     the aggregate reads a source directly."""
 
+    limit = -1
+
     def __init__(self, op: L.LogicalOperator,
                  source: Optional[L.LogicalOperator] = None):
         self.op = op
@@ -352,6 +363,8 @@ class JoinStage:
     side) with the build side, whose own plan runs first (reference:
     PhysicalPlan.cc:145-178). `source` is set when the join reads a source
     directly."""
+
+    limit = -1
 
     def __init__(self, op: L.LogicalOperator,
                  source: Optional[L.LogicalOperator] = None):
@@ -697,26 +710,49 @@ def _compact_rows(ctx: EmitCtx, row: CV, keep, rowidx, full_err, overflow,
 # planning
 # ---------------------------------------------------------------------------
 
-def plan_stages(sink: L.LogicalOperator) -> list:
+def plan_stages(sink: L.LogicalOperator, options=None) -> list:
     """Walk the DAG sink -> source, cutting it at the breakers (reference:
-    PhysicalPlan.cc:60-238 splitIntoAndPlanStages). The first stage reads
+    PhysicalPlan.cc:60-238 splitIntoAndPlanStages; `_plan_stages_impl`,
+    tuplex_tpu/plan/physical.py:972, whose passes run here in its order,
+    without branch speculation and graph vetting). The first stage reads
     the source; each later one reads the stage before it. A breaker right
     after the source (or after another breaker) reads its input with no
     transform stage between, except a recognized whole-dataset fold, which
-    runs inside the transform stage before it. The first stage reads only
-    the CSV columns the plan needs."""
-    chain: list[L.LogicalOperator] = []
-    node = sink
-    while node.parents:
-        chain.append(node)
-        node = node.parent
-    chain.reverse()
-    stages: list = []
-    cur: list[L.LogicalOperator] = []
-    inp: L.LogicalOperator = node
+    runs inside the transform stage before it. A cached dataset
+    (plan/cacheop.py) is a source; a take sets the last stage's `limit`.
+
+    `options` (core/options.py; None: the defaults) turn the passes on:
+    filters pushed through joins, then within each transform stage their
+    conjunctions split and the filters pushed ahead
+    (`tuplex.optimizer.filterPushdown`, `filterBreakdown`), filter runs
+    ordered by their pass rate (`operatorReordering`, off by default).
+    The first stage reads only the CSV columns the plan needs. Each
+    transform stage is cut at the operators the emitter refuses
+    (`segment_stage`)."""
+    from . import optimizer as O
     from .aggregates import AggregateOperator, device_fold_spec
     from .joins import JoinOperator
 
+    def on(key: str, default: bool = True) -> bool:
+        return default if options is None else \
+            options.get_bool(key, default)
+
+    chain: list[L.LogicalOperator] = []
+    limit = -1
+    node = sink
+    while node.parents and not getattr(node, "acts_as_source", False):
+        if isinstance(node, L.TakeOperator):
+            limit = node.limit
+        else:
+            chain.append(node)
+        node = node.parent
+    chain.reverse()
+    pushdown = on("tuplex.optimizer.filterPushdown")
+    if pushdown:
+        chain = O.push_filters_through_joins(chain)
+    stages: list = []
+    cur: list[L.LogicalOperator] = []
+    inp: L.LogicalOperator = node
     for op in chain:
         if not op.is_breaker():
             cur.append(op)
@@ -733,19 +769,33 @@ def plan_stages(sink: L.LogicalOperator) -> list:
         cur, inp = [], op
     if cur or not stages:
         stages.append(TransformStage(inp, cur))
+    stages[-1].limit = limit
+    for st in stages:
+        if not isinstance(st, TransformStage):
+            continue
+        if pushdown:
+            if on("tuplex.optimizer.filterBreakdown"):
+                st.ops = O.split_filter_conjunctions(st.ops)
+            st.ops = O.filter_pushdown(st.ops)
+        if on("tuplex.optimizer.operatorReordering", False):
+            st.ops = O.reorder_filters(st.ops)
+        st._relink_schemas()
     if isinstance(stages[0], TransformStage):
-        from .optimizer import agg_required_columns
-
         nxt = stages[1] if len(stages) > 1 else None
-        _apply_projection(stages[0], agg_required_columns(nxt.op)
+        _apply_projection(stages[0], O.agg_required_columns(nxt.op)
                           if isinstance(nxt, AggregateStage) else None)
-    return stages
+    out: list = []
+    for st in stages:
+        out.extend(segment_stage(st) if isinstance(st, TransformStage)
+                   else [st])
+    return out
 
 
 def consumer_kind(stages: list, si: int):
     """Who takes stage `si`'s output on the device (the reference's
-    `consumer_kind`): "stage", "join" or "agg", or False when the stage is
-    the last or the next one runs on the interpreter (its emitter already
+    `consumer_kind`, plan/physical.py:1094): "stage", "join" or "agg", or
+    False when the stage is the last or the next one runs on the
+    interpreter (an interpreter segment, or a stage whose emitter already
     refused it). exec/local.py `run_plan` passes it to each stage."""
     nxt = stages[si + 1] if si + 1 < len(stages) else None
     if isinstance(nxt, AggregateStage):
@@ -755,6 +805,133 @@ def consumer_kind(stages: list, si: int):
     if isinstance(nxt, TransformStage) and not nxt.not_compilable:
         return "stage"
     return False
+
+
+# ---------------------------------------------------------------------------
+# segmentation at the operators the emitter refuses
+# ---------------------------------------------------------------------------
+
+def segment_stage(stage: TransformStage) -> list:
+    """Cut a transform stage at the operators the emitter refuses
+    (reference: `segment_stage`, tuplex_tpu/plan/physical.py:1660): each
+    maximal run of operators that compile stays one fused stage, each run
+    of refused ones becomes an interpreter segment (`force_interpret`,
+    with the analyzer's `route_reason`). A resolve or ignore rides with
+    the run of the operator it guards. The first segment keeps the
+    stage's source and input; the last its `limit` and fused fold."""
+    if not stage.ops:
+        return [stage]
+    flags: list = []          # True compiles, False not, None rides along
+    schemas_before: list = []
+    schema = stage.input_schema
+    for op in stage.ops:
+        schemas_before.append(schema)
+        if isinstance(op, L.RESOLVERS):
+            flags.append(None)
+            continue
+        flags.append(op_compiles(op, schema))
+        # a filter keeps its input's schema: one pushed ahead of the
+        # operators it does not read has a later parent
+        if not isinstance(op, L.FilterOperator):
+            schema = op.schema()
+    if all(f is not False for f in flags):
+        return [stage]
+    runs: list = []           # [start index, ops, refused]
+    for i, (op, ok) in enumerate(zip(stage.ops, flags)):
+        if ok is None and runs:
+            runs[-1][1].append(op)
+            continue
+        bad = ok is False
+        if runs and runs[-1][2] == bad:
+            runs[-1][1].append(op)
+        else:
+            runs.append([i, [op], bad])
+    from ..compiler.analyzer import op_analysis
+
+    segments: list = []
+    for start, ops_run, bad in runs:
+        if not segments:
+            seg = TransformStage(stage.source, ops_run,
+                                 input_schema=stage.input_schema)
+        else:
+            seg = TransformStage(segments[-1].ops[-1], ops_run,
+                                 input_schema=schemas_before[start])
+        seg.force_interpret = seg.not_compilable = bad
+        if bad:
+            reasons = []
+            for op in ops_run:
+                rep = op_analysis(op)
+                f = rep.routing_finding() if rep is not None else None
+                if f is not None:
+                    reasons.append(f"{rep.name}: {f.reason} ({rep.loc(f)})")
+            if reasons:
+                seg.route_reason = "plan-time fallback — " + \
+                    "; ".join(reasons)
+        segments.append(seg)
+    segments[-1].limit = stage.limit
+    segments[-1].fold_spec = stage.fold_spec
+    return segments
+
+
+_PROBE_ROWS = 8
+_probe_memo: LruDict = LruDict(4096)
+
+
+def op_compiles(op: L.LogicalOperator, input_schema: T.RowType) -> bool:
+    """Whether the emitter compiles one operator over rows of
+    `input_schema` (reference: `op_compiles`, plan/physical.py:1189). An
+    operator whose UDF has a fallback finding is refused without a probe
+    (counted in the analyzer's `plan_fallback_ops`); one no sample row
+    reaches is left to the emitter at run time; another is probed:
+    its stage function is built and run over a batch of 8 of its parent's
+    sample rows (placeholders where they do not conform) on the CPU,
+    never on the card or through the compile plane. Cached per operator
+    content (the compile plane's digest) and input schema."""
+    from ..compiler import analyzer as AZ
+
+    rep = AZ.op_analysis(op)
+    if rep is not None and rep.must_fallback:
+        AZ.STATS["plan_fallback_ops"] += 1
+        return False
+    if not op.parent.cached_sample():
+        # no sample row reached the operator: its input schema is a guess
+        # (pyobject), and the emitter decides at run time on the
+        # partitions' own schema
+        return True
+    probe = TransformStage(op.parent, [op], input_schema=input_schema)
+    from ..exec.compilequeue import _stage_digest
+
+    digest = _stage_digest(probe)     # "identity:..." where not keyable
+    key = (digest, input_schema.name)
+    if key not in _probe_memo:
+        _probe_memo[key] = _probe(probe, op, input_schema)
+    return _probe_memo[key]
+
+
+def _probe(probe: TransformStage, op: L.LogicalOperator,
+           schema: T.RowType) -> bool:
+    from ..exec.compilequeue import _read_counts, _set_counts
+    from ..runtime import columns as C
+
+    try:
+        rows = op.parent.cached_sample()[:_PROBE_ROWS]
+    except Exception:
+        rows = []
+    one = len(schema.types) == 1
+    values = [r.values[0] if one and len(r.values) == 1 else tuple(r.values)
+              for r in rows] or [None] * _PROBE_ROWS
+    counts = _read_counts()   # the probe is no launch of the job's
+    try:
+        part = C.build_partition(values, schema)
+        arrays = C.stage_partition(part, torch.device("cpu")).arrays
+        probe.build_device_fn(schema)(arrays)
+        return True
+    except Exception:
+        # NotCompilable, or any other failure to build: the interpreter
+        # is always right
+        return False
+    finally:
+        _set_counts(counts)
 
 
 def _apply_projection(stage: TransformStage, output_required=None) -> None:
